@@ -1,0 +1,177 @@
+"""Shared model building blocks: param definitions, norms, RoPE family.
+
+Norms and activations are written from the same elementary ops as the
+reference package's (square, sum, divide, ``rsqrt``, multiply; ``x *
+sigmoid(x)``), not from fused library calls, so that the profiler's quantize
+sites fall where the reference's do.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.interpreter import scope
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card: entry points never pick the CPU on their
+    own. Raises when no CUDA device is there and none was asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+# --------------------------------------------------------------------------
+# parameter definitions: one source of truth for shape + logical axes + init
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical axis names, len == rank
+    init: str = "normal"              # normal | zeros | ones
+    scale: float = 0.02
+
+    def initializer(self, generator, dtype, device):
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dtype, device=device)
+        t = torch.randn(self.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (t * self.scale).to(dtype)
+
+
+def map_defs(fn, defs):
+    """Apply ``fn`` to every ParamDef of a nested dict/list of them."""
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    if isinstance(defs, dict):
+        return {k: map_defs(fn, v) for k, v in defs.items()}
+    if isinstance(defs, (list, tuple)):
+        return [map_defs(fn, v) for v in defs]
+    raise TypeError(f"not a ParamDef tree: {type(defs).__name__}")
+
+
+def init_tree(defs, generator: torch.Generator, dtype, device):
+    """Initialize a tree of ParamDef into tensors on ``device``, drawing
+    from ``generator`` (which must live on that device) in tree order, so a
+    seed fixes every parameter."""
+    return map_defs(lambda d: d.initializer(generator, dtype, device), defs)
+
+
+def count_params(defs) -> int:
+    total = 0
+
+    def add(d):
+        nonlocal total
+        total += math.prod(d.shape)
+
+    map_defs(add, defs)
+    return total
+
+
+def einsum(spec: str, a, b):
+    """``torch.einsum`` under a scope named after its subscripts: the
+    reference's ``jnp.einsum`` puts its contraction under exactly that name
+    (``layer/attn/mix/bhgqd,bhkd->bhgqk``), and policies may address it."""
+    with scope(spec):
+        return torch.einsum(spec, a, b)
+
+
+# --------------------------------------------------------------------------
+# norms (f32 internal math regardless of activation dtype)
+# --------------------------------------------------------------------------
+
+def _mean_last(x):
+    # sum then divide, the two operations the reference's mean is made of
+    return x.sum(dim=-1, keepdim=True) / x.shape[-1]
+
+
+def rmsnorm(x, scale, eps: float = 1e-5):
+    with scope("rmsnorm"):
+        xf = x.to(torch.float32)
+        var = _mean_last(xf * xf)
+        y = xf * torch.rsqrt(var + eps)
+        return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    with scope("layernorm"):
+        xf = x.to(torch.float32)
+        mu = _mean_last(xf)
+        centered = xf - mu
+        var = _mean_last(centered * centered)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * scale.to(torch.float32)
+                + bias.to(torch.float32)).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# activations
+# --------------------------------------------------------------------------
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+def swiglu(gate_up):
+    gate, up = torch.chunk(gate_up, 2, dim=-1)
+    return silu(gate) * up
+
+
+def gelu(x):
+    """tanh-approximated GELU, term for term the reference's."""
+    inner = math.sqrt(2.0 / math.pi) * (x + 0.044715 * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+ACTIVATIONS = {
+    "swiglu": swiglu,                    # expects fused (…, 2*d_ff)
+    "gelu": gelu,
+    "relu": torch.relu,
+}
+
+
+# --------------------------------------------------------------------------
+# RoPE family: standard and partial
+# --------------------------------------------------------------------------
+
+def rope_freqs(rotary_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, rotary_dim, 2, dtype=torch.float32,
+                            device=device) / rotary_dim
+    return torch.reciprocal(theta ** exponent)
+
+
+def _rotate(x, sin, cos):
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_rope(x, positions, *, theta: float = 1e4, fraction: float = 1.0):
+    """x: (B, H, S, D); positions: (B, S) int. Rotary applied to the first
+    ``fraction`` of D (GLM-4 uses 0.5)."""
+    d = x.shape[-1]
+    rd = int(d * fraction)
+    rd -= rd % 2
+    if rd == 0:
+        return x
+    inv = rope_freqs(rd, theta, x.device)                          # (rd/2,)
+    ang = positions.to(torch.float32)[:, None, :, None] * inv  # (B,1,S,rd/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    xr, xp = x[..., :rd], x[..., rd:]
+    xr = _rotate(xr.to(torch.float32), sin, cos).to(x.dtype)
+    return torch.cat([xr, xp], dim=-1) if rd < d else xr
