@@ -4,13 +4,22 @@
     python3 chip_smoke.py
 
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
-device. Builds the port's CUDA kernels from the sources in this checkout,
-holds each against its plain PyTorch version on the card bit for bit, then
-drives the port's main path — op-mode truncation (``truncate`` and
-``truncate_sweep``) of h2o-danube-1.8b at full width and depth, bf16, one
-batch of 1 x 8192 tokens, random weights from a seed — and times the
-kernels and the forward. Nothing is caught: any failed phase ends the run
-with a traceback and a non-zero exit code.
+device. Builds the port's CUDA kernels from the sources in this checkout
+(one ``nvcc`` per library, all started together), holds each against its
+plain PyTorch version on the card, then drives the port's two paths:
+
+  * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
+    of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
+    tokens, random weights from a seed;
+  * the fused path — the same two entry points over the fused-epilogue
+    kernels: the attention block of h2o-danube-1.8b's layer 0 (projections,
+    flash attention with GQA and the 4096-token window, output projection)
+    at 1 x 8192 tokens, and the WKV6 recurrence of rwkv6-7b (64 heads of
+    64) at 1 x 4096 tokens, each with a matched site's format row routed
+    into the kernel's epilogue —
+
+and times the kernels and the forward. Nothing is caught: any failed phase
+ends the run with a traceback and a non-zero exit code.
 
 Every phase prints one JSON line. The line before the last lists every
 kernel with its launches on the main path, its error against the plain
@@ -19,8 +28,10 @@ one library call that computes the same function (where there is one). The
 last line is ``{"ok": true, "device": {...}}``.
 
 Options (for debugging at a smaller size; the defaults are the full run):
-``--layers N`` cuts the depth, ``--seq S`` the sequence length, ``--phases
-a,b`` runs only some of ``kernels,main_path,small_ref,times`` or adds
+``--layers N`` cuts the depth, ``--seq S`` the sequence length of the
+h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
+runs only some of
+``kernels,fused_kernels,main_path,fused_path,small_ref,times`` or adds
 ``profile`` (device time by kernel name for one plain and one swept forward).
 """
 from __future__ import annotations
@@ -43,10 +54,19 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # below are stated against them whatever the card's power limit is
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12        # dense tensor-core rate
 # instructions one element costs in quantize_one (integer and f32, counted
 # from the source: ~8 for the mantissa trick, ~6 subnormal branch, ~6
 # overflow, ~4 specials and fault, ~8 widen/narrow/address)
 OPS_PER_ELEMENT = 32
+
+# the TPU kernel each of the port's kernels replaces
+REPLACES = {
+    "quantize_em_static": "src/repro/kernels/quantize_em/kernel.py:88",
+    "quantize_em_dynamic": "src/repro/kernels/quantize_em/kernel.py:121",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:84",
+    "wkv6": "src/repro/kernels/rwkv6/kernel.py:75",
+}
 
 RUNG_M = (23, 15, 10, 7, 5, 3, 2, 1)
 RUNG_E = (8, 5, 4, 2)
@@ -93,6 +113,15 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[both] - b[both]).abs().max())
 
 
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| less 1e-6, in units of the bf16 spacing at
+    |want| (8 significant bits: in [2^(e-1), 2^e) the spacing is 2^(e-8))."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(want.abs().clamp_min(torch.finfo(torch.bfloat16).tiny))
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    return float((((got - want).abs() - 1e-6).clamp_min(0) / ulp).max())
+
+
 def sweep_inputs(device) -> torch.Tensor:
     """All 65536 float16 bit patterns widened to f32, random f32 over the
     whole exponent range, random bit patterns (f32 subnormals, NaN payloads),
@@ -135,13 +164,18 @@ def phase_env():
 
 
 def phase_build():
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.quantize_em import kernel as qk
+    from repro_torch.kernels.rwkv6 import kernel as wk
     t0 = time.perf_counter()
-    build = qk.start_build()          # one nvcc per source, started together
-    path = build.wait()
-    qk._lib()
+    builds = kernels.start_builds()   # one nvcc per library, all together
+    paths = [b.wait() for b in builds]
+    for m in (qk, fk, wk):
+        m._lib()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         libraries=[os.path.relpath(str(path))], sources=[qk.SOURCE])
+         libraries=[os.path.relpath(str(p)) for p in paths],
+         sources=[qk.SOURCE, fk.SOURCE, wk.SOURCE])
 
 
 def phase_kernels(device):
@@ -259,6 +293,217 @@ def phase_kernels(device):
     return {k: v["err"] for k, v in stats.items()}
 
 
+# ---------------------------------------------------------------------------
+# the fused-epilogue kernels: cases, rows, inputs
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py FLASH_CASES: B, Hq, Hkv, S, D, window, causal, dtype
+FLASH_CASES = [
+    (2, 4, 2, 128, 32, None, True, torch.float32),
+    (1, 8, 8, 64, 16, None, True, torch.float32),
+    (2, 4, 1, 128, 32, 32, True, torch.float32),
+    (1, 2, 2, 256, 64, None, False, torch.float32),
+    (2, 6, 3, 128, 32, None, True, torch.bfloat16),
+    (1, 4, 4, 128, 128, 64, True, torch.float32),
+]
+# tests/test_kernels.py test_wkv6_pallas_vs_ref: B, H, S, hd, chunk
+WKV_CASES = [(2, 3, 64, 16, 16), (1, 2, 128, 32, 64), (2, 1, 32, 8, 32),
+             (1, 4, 64, 64, 64)]
+# tests/test_fused_epilogue.py ROWS: every ladder rung, both fp8 overflow
+# conventions, a fault-armed row (bit 31) and the identity row
+FUSED_ROWS = [
+    ("e8m15", [8, 15, 0, 1]), ("e8m10", [8, 10, 0, 1]),
+    ("e8m7", [8, 7, 0, 1]), ("e8m5", [8, 5, 0, 1]), ("e8m3", [8, 3, 0, 1]),
+    ("e8m2", [8, 2, 0, 1]), ("e5m2", [5, 2, 0, 1]), ("e4m3s", [4, 3, 1, 0]),
+    ("e4m3fn", [4, 3, 0, 0]), ("e4m3fn+fault31", [4, 3, 0, 64]),
+    ("identity", [11, 52, 0, 1]),
+]
+WKV_PATH = dict(B=1, H=64, hd=64)          # rwkv6-7b: 64 heads of 64
+
+
+def randn(g, shape, device, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+
+def flash_path_inputs(device, seq, dtype=torch.bfloat16):
+    """q, k, v at the attention path's shape: h2o-danube-1.8b, 32 q heads,
+    8 KV heads, head dim 80."""
+    g = torch.Generator(device=device)
+    g.manual_seed(1)
+    return (randn(g, (1, 32, seq, 80), device, dtype),
+            randn(g, (1, 8, seq, 80), device, dtype),
+            randn(g, (1, 8, seq, 80), device, dtype))
+
+
+def wkv_inputs(device, B, H, S, hd, seed=0, rkv_dtype=torch.bfloat16):
+    """r, k, v (rkv_dtype) and the decay w (f32, in (0, 1)) as the rwkv6
+    mix produces them: (B, S, H, hd) tensors seen as (B, H, S, hd) views,
+    w = exp(-exp(w_log)); the bonus u (H, hd) and the state s0 f32."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def heads(t):
+        return t.permute(0, 2, 1, 3)
+
+    r, k, v = (heads(randn(g, (B, S, H, hd), device, rkv_dtype))
+               for _ in range(3))
+    w = heads(torch.exp(-torch.exp(randn(g, (B, S, H, hd), device,
+                                         scale=0.5) - 0.5)))
+    u = randn(g, (H, hd), device, scale=0.1)
+    s0 = randn(g, (B, H, hd, hd), device, scale=0.1)
+    return r, k, v, w, u, s0
+
+
+def flash_pairs(S, window) -> int:
+    """Unmasked (q, k) pairs of one causal head with a sliding window: what
+    the work depends on."""
+    i = np.arange(S, dtype=np.int64)
+    return int((i + 1 - np.maximum(i - window + 1, 0)).sum())
+
+
+def phase_fused_kernels(device, seq, wkv_seq):
+    """The flash-attention and WKV6 kernels against their plain versions on
+    the card, and their fused epilogues against the unfused kernel followed
+    by quantize_em_dynamic, bit for bit."""
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    from repro_torch.kernels.quantize_em import kernel as qk
+    from repro_torch.kernels.rwkv6 import ops as wops, ref as wref
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+
+    # ---- flash: the reference's cases against the naive oracle -----------
+    flash_cases = []
+    for n, (B, Hq, Hkv, S, D, win, causal, dt) in enumerate(FLASH_CASES):
+        r = np.random.RandomState(n)
+        q, k, v = (t(r.randn(B, H, S, D), dt) for H in (Hq, Hkv, Hkv))
+        o = fops.flash_attention(q, k, v, causal=causal, window=win,
+                                 impl="cuda")
+        want = fref.attention_ref(q, k, v, causal=causal, window=win)
+        flash_cases.append(dict(
+            case=[B, Hq, Hkv, S, D, win, causal, str(dt)],
+            max_abs_err=max_abs_err(o, want),
+            finite=bool(torch.isfinite(o).all()),
+            tol=2e-2 if dt == torch.bfloat16 else 2e-5))
+
+    # ---- flash at the path's shape against the chunked plain version -----
+    # (the naive oracle would hold (32, S, S) f32 scores); bf16 as on the
+    # path, and f32 to see the kernel's arithmetic without bf16 rounding.
+    # Most rows attend to 4096 keys, so a typical |out| is ~0.03 and an
+    # absolute bf16 limit would be loose: both sides compute in f32 and round
+    # once to bf16, so the bf16 output is held within 2 bf16 units of |want|
+    # (plus 1e-6), the f32 one within 2e-5
+    W = 4096
+    flash_path = {}
+    for dt, tol in ((torch.bfloat16, 2.0), (torch.float32, 2e-5)):
+        q, k, v = flash_path_inputs(device, seq, dt)
+        o = fops.flash_attention(q, k, v, window=W, impl="cuda")
+        want = fops.flash_attention(q, k, v, window=W, impl="ref")
+        err = max_abs_err(o, want)
+        flash_path[str(dt)] = dict(
+            max_abs_err=err, finite=bool(torch.isfinite(o).all()),
+            max_abs_out=float(o.float().abs().max()),
+            mean_abs_out=float(o.float().abs().mean()),
+            **(dict(max_bf16_ulps=bf16_ulps(o, want), tol_bf16_ulps=tol)
+               if dt == torch.bfloat16 else dict(tol=tol)))
+        del q, k, v, o, want
+    torch.cuda.empty_cache()
+
+    # ---- wkv6: the reference's cases ---------------------------------------
+    wkv_cases = []
+    for n, (B, H, S, hd, chunk) in enumerate(WKV_CASES):
+        r = np.random.RandomState(100 + n)
+        rr, kk, vv = (t(r.randn(B, H, S, hd)) for _ in range(3))
+        w = t(1 / (1 + np.exp(-r.randn(B, H, S, hd))) * 0.98 + 0.01)
+        u, s0 = t(r.randn(H, hd) * 0.1), t(r.randn(B, H, hd, hd) * 0.1)
+        y, sT = wops.wkv6(rr, kk, vv, w, u, s0, chunk=chunk, impl="cuda")
+        y2, sT2 = wref.wkv6_ref(rr, kk, vv, w, u, s0)
+        wkv_cases.append(dict(case=[B, H, S, hd, chunk],
+                              y_err=max_abs_err(y, y2),
+                              sT_err=max_abs_err(sT, sT2),
+                              sT_mismatches=bit_mismatches(sT, sT2),
+                              tol=1e-4))
+
+    # ---- wkv6 at the path's shape; chunk invariance ------------------------
+    args = wkv_inputs(device, WKV_PATH["B"], WKV_PATH["H"], wkv_seq,
+                      WKV_PATH["hd"])
+    y, sT = wops.wkv6(*args, impl="cuda")
+    y2, sT2 = wref.wkv6_ref(*args)
+    y_max = float(y2.abs().max())
+    # y_t is a 64-term sum over the head dimension, taken in another order
+    # than the plain einsum (and with fmas); the state update is elementwise
+    # and the same operations, so sT must agree bit for bit
+    wkv_path = dict(shape=[WKV_PATH["B"], WKV_PATH["H"], wkv_seq,
+                           WKV_PATH["hd"]],
+                    y_err=max_abs_err(y, y2), max_abs_y=y_max,
+                    tol=1e-4 * y_max, sT_mismatches=bit_mismatches(sT, sT2),
+                    finite=bool(torch.isfinite(y).all()))
+    chunk_bits = 0
+    for chunk in (16, 100, 200):
+        yc, sc = wops.wkv6(*args, chunk=chunk, impl="cuda")
+        chunk_bits += bit_mismatches(yc, y) + bit_mismatches(sc, sT)
+    r = np.random.RandomState(7)
+    wsmall = [t(r.randn(1, 2, 128, 16)) for _ in range(3)]
+    wsmall += [t(1 / (1 + np.exp(-r.randn(1, 2, 128, 16)))),
+               t(r.randn(2, 16) * 0.1), t(np.zeros((1, 2, 16, 16)))]
+    base = wops.wkv6(*wsmall, chunk=16, impl="cuda")
+    for chunk in (32, 128, 48):
+        yc, sc = wops.wkv6(*wsmall, chunk=chunk, impl="cuda")
+        chunk_bits += bit_mismatches(yc, base[0]) + bit_mismatches(sc, base[1])
+    del y, sT, y2, sT2
+
+    # ---- fused epilogue == unfused kernel + quantize_em_dynamic ------------
+    r = np.random.RandomState(0)
+    small = tuple(t(r.randn(1, 2, 128, 32) * 4) for _ in range(3))
+    flash_progs = {
+        "flash_f32": small + (None,),
+        "flash_bf16": tuple(x.to(torch.bfloat16) for x in small) + (None,),
+        "flash_path_bf16": flash_path_inputs(device, seq) + (W,),
+    }
+    fused = {k: 0 for k in list(flash_progs) + ["wkv6_small_y", "wkv6_path_y",
+                                                 "wkv6_sT_touched"]}
+    for _, row in FUSED_ROWS:
+        row = torch.tensor(row, dtype=torch.int32, device=device)
+        for name, (q, k, v, win) in flash_progs.items():
+            got = fops.flash_attention(q, k, v, window=win, impl="cuda",
+                                       out_fmt=row)
+            plain = fops.flash_attention(q, k, v, window=win, impl="cuda")
+            fused[name] += bit_mismatches(got, qk.quantize_em_dynamic(plain,
+                                                                      row))
+        for name, wargs, chunk in (("wkv6_small_y", wsmall, 32),
+                                   ("wkv6_path_y", args, 64)):
+            yf, sTf = wops.wkv6(*wargs, chunk=chunk, impl="cuda", out_fmt=row)
+            yp, sTp = wops.wkv6(*wargs, chunk=chunk, impl="cuda")
+            fused[name] += bit_mismatches(yf, qk.quantize_em_dynamic(yp, row))
+            fused["wkv6_sT_touched"] += bit_mismatches(sTf, sTp)
+    torch.cuda.synchronize()
+
+    emit("fused_kernels", flash_cases=flash_cases, flash_path=flash_path,
+         wkv6_cases=wkv_cases, wkv6_path=wkv_path,
+         wkv6_chunk_mismatches=chunk_bits,
+         fused_rows=[n for n, _ in FUSED_ROWS], fused_mismatches=fused,
+         tolerance="flash 2e-5 f32 / 2e-2 bf16 (max abs) on the reference "
+                   "cases, 2e-5 f32 / 2 bf16 units of |want| + 1e-6 at the "
+                   "path shape; wkv6 1e-4 on the "
+                   "reference cases, 1e-4 * max|y| at the path shape; sT, "
+                   "chunk invariance and fused vs unfused bit for bit")
+    for c in flash_cases:
+        check(c["finite"] and c["max_abs_err"] < c["tol"], "flash", c)
+    for k, c in flash_path.items():
+        check(c["finite"] and (c["max_bf16_ulps"] <= c["tol_bf16_ulps"]
+                               if "tol_bf16_ulps" in c
+                               else c["max_abs_err"] < c["tol"]),
+              "flash path", k, c)
+    for c in wkv_cases:
+        check(c["y_err"] < c["tol"] and c["sT_err"] < c["tol"], "wkv6", c)
+    check(wkv_path["finite"] and wkv_path["y_err"] <= wkv_path["tol"]
+          and wkv_path["sT_mismatches"] == 0, "wkv6 path", wkv_path)
+    check(chunk_bits == 0, "wkv6 chunk invariance", chunk_bits)
+    check(sum(fused.values()) == 0, "fused vs unfused", fused)
+    return {"flash_attention": flash_path[str(torch.bfloat16)]["max_abs_err"],
+            "wkv6": wkv_path["y_err"]}
+
+
 def make_batch(cfg, B, S, device, seed=0):
     r = np.random.RandomState(seed)
     toks = r.randint(0, cfg.vocab, (B, S + 1))
@@ -356,6 +601,161 @@ def phase_main_path(device, layers, seq):
     del params
     torch.cuda.empty_cache()
     return counts, times
+
+
+def drive_fused(name, program, args, scoped, kernel, routed):
+    """One fused program through the entry points a user calls: plain,
+    ``truncate`` under ``scoped``, and ``truncate_sweep`` (every float
+    result a site) on four tables. Launch counts are set to 0 just before
+    and read just after. ``routed``: covered outputs per run."""
+    from repro_torch import kernels
+    from repro_torch.core import TruncationPolicy, truncate, truncate_sweep
+
+    ladder = [("identity", None),
+              ("e8m7", TruncationPolicy.everywhere("e8m7")),
+              ("e8m3", TruncationPolicy.everywhere("e8m3")),
+              ("scoped", scoped)]
+    with torch.no_grad():
+        kernels.reset_launch_counts()           # the fused path starts here
+        plain = program(*args)
+        lossy = truncate(program, scoped)
+        t_scoped = lossy(*args)
+        sweep = truncate_sweep(program, TruncationPolicy.everywhere("e5m2"))
+        handle = sweep(*args)
+        tables = [handle.device_table(handle.identity_table() if p is None
+                                      else handle.table(p))
+                  for _, p in ladder]
+        torch.cuda.synchronize()
+        # the swept runs must not synchronise with the host anywhere
+        torch.cuda.set_sync_debug_mode("error")
+        swept = [handle(t) for t in tables]
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()        # ... and ends here
+    calls = 3 + len(tables)             # plain, truncate, enumeration, tables
+    per_run = handle.site_executions - routed
+
+    def same(a, b):
+        return all(bit_mismatches(x, y) == 0 for x, y in zip(a, b))
+
+    def timed(fn, reps=3):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    with torch.no_grad():
+        times = {"plain_ms": timed(lambda: program(*args)),
+                 "truncate_scoped_ms": timed(lambda: lossy(*args)),
+                 "table_e8m7_ms": timed(lambda: handle(tables[1]))}
+    sites = [(s.stack, s.prim) for s in handle.sites]
+    info = dict(program=name, num_sites=handle.num_sites,
+                fused_sites=[st for st, p in sites if p == "pallas_call"],
+                site_executions_per_run=handle.site_executions,
+                routed_per_run=routed, tables_run=len(tables),
+                n_traces=sweep.n_traces, truncate_n_traces=lossy.n_traces,
+                calls=calls, launches=counts, **times)
+    check(same(swept[0], plain), name, "identity table changed the output")
+    check(same(swept[-1], t_scoped), name,
+          "scoped truncate differs from the same policy's table")
+    check(not same(swept[2], plain), name, "the e8m3 table had no effect")
+    check(sweep.n_traces == 1 and lossy.n_traces == 1, name, info)
+    check(counts[kernel] == calls, name, "fused kernel launches", info)
+    check(counts["quantize_em_dynamic"] == per_run * len(tables), name,
+          "a routed output took a separate quantize pass", info)
+    return plain, t_scoped, info, counts
+
+
+def phase_fused_path(device, seq, wkv_seq):
+    """The two fused programs through truncate and truncate_sweep at full
+    width, each with its site's row routed into the kernel's epilogue."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import TruncationPolicy, scope
+    from repro_torch.core.formats import parse_format
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.quantize_em import kernel as qk
+    from repro_torch.kernels.quantize_em.ops import IDENTITY_ROW, format_row
+    from repro_torch.kernels.rwkv6 import ops as wops
+    from repro_torch.models import Model, attention
+
+    cfg = get_config("h2o-danube-1.8b")
+    ident = torch.tensor(IDENTITY_ROW, device=device)
+    e8m3 = torch.tensor(format_row("e8m3"), device=device)
+    counts = {}
+
+    # ---- the attention block of layer 0 ------------------------------------
+    full = Model(cfg).init(seed=0)
+    p = {k: t[0].clone() for k, t in full["layers"]["attn"].items()}
+    del full
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    x = randn(g, (1, seq, cfg.d_model), device, torch.bfloat16)
+    positions = torch.arange(seq, dtype=torch.int32, device=device)[None]
+
+    def attn_program(p, x, positions, ident):
+        B, S, _ = x.shape
+        with scope("qkv"):
+            q, k, v = attention._project_qkv(p, x, cfg, positions)
+        with scope("mix"):
+            o = fops.flash_attention(q, k, v, causal=True,
+                                     window=cfg.sliding_window, out_fmt=ident)
+        with scope("proj"):
+            out = o.permute(0, 2, 1, 3).reshape(B, S, -1) \
+                @ p["wo"].to(x.dtype)
+        return out, o
+
+    plain, routed, info, c = drive_fused(
+        "attention", attn_program, (p, x, positions, ident),
+        TruncationPolicy.scoped("mix", "e8m3"), "flash_attention", 1)
+    counts["flash_attention"] = c["flash_attention"]
+    with torch.no_grad():
+        q, k, v = attention._project_qkv(p, x, cfg, positions)
+        unfused = fops.flash_attention(q, k, v, window=cfg.sliding_window)
+        want = qk.quantize_em_dynamic(unfused, e8m3)
+    info["routed_vs_unfused_mismatches"] = bit_mismatches(routed[1], want)
+    info["out_shape"] = list(plain[0].shape)
+    info["finite"] = bool(torch.isfinite(plain[0]).all())
+    emit("fused_path", **info)
+    check(info["routed_vs_unfused_mismatches"] == 0, info)
+    check(info["finite"] and info["out_shape"] == [1, seq, cfg.d_model], info)
+    check(info["fused_sites"] == ["mix"], info["fused_sites"])
+    check(c["quantize_em_static"] == 0, c)
+    del p, x, q, k, v, unfused, want, plain, routed
+    torch.cuda.empty_cache()
+
+    # ---- the WKV6 recurrence of rwkv6-7b ------------------------------------
+    args = wkv_inputs(device, WKV_PATH["B"], WKV_PATH["H"], wkv_seq,
+                      WKV_PATH["hd"], seed=2)
+
+    def wkv_program(r, k, v, w, u, s0, ident):
+        with scope("wkv"):
+            return wops.wkv6(r, k, v, w, u, s0, out_fmt=ident)
+
+    plain, routed, info, c = drive_fused(
+        "wkv6", wkv_program, args + (ident,),
+        TruncationPolicy.scoped("wkv", "e8m3"), "wkv6", 1)
+    counts["wkv6"] = c["wkv6"]
+    with torch.no_grad():
+        y, sT = wops.wkv6(*args)
+        want_y = qk.quantize_em_dynamic(y, e8m3)
+        want_sT = qk.quantize_em_static(sT, parse_format("e8m3"))
+    info["routed_vs_unfused_mismatches"] = bit_mismatches(routed[0], want_y)
+    info["sT_separate_pass_mismatches"] = bit_mismatches(routed[1], want_sT)
+    info["finite"] = bool(torch.isfinite(plain[0]).all())
+    emit("fused_path", **info)
+    check(info["routed_vs_unfused_mismatches"] == 0
+          and info["sT_separate_pass_mismatches"] == 0, info)
+    check(info["finite"], info)
+    check(info["fused_sites"] == ["wkv", "wkv"], info["fused_sites"])
+    # sT is an ordinary site: one static pass under truncate
+    check(c["quantize_em_static"] == 1, c)
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_small_ref(device):
@@ -462,6 +862,73 @@ def phase_times(device, seq):
     return rows
 
 
+def phase_fused_times(device, seq, wkv_seq):
+    """The flash-attention and WKV6 kernels at the fused path's shapes,
+    beside their bounds, their plain versions and the library call of the
+    same function (SDPA for attention; none computes the WKV6 recurrence)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk, ops as fops
+    from repro_torch.kernels.rwkv6 import kernel as wk, ref as wref
+
+    rows = []
+    W = 4096
+    q, k, v = flash_path_inputs(device, seq)
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    pairs = 32 * flash_pairs(seq, W)
+    flops = pairs * 2 * (q.shape[-1] + v.shape[-1])
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    ops_ms = flops / PEAK_BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    i = torch.arange(seq, device=device)
+    mask = (i[:, None] >= i[None, :]) & ((i[:, None] - i[None, :]) < W)
+    with torch.no_grad():
+        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                 enable_gqa=True)
+        ours = fk.flash_attention_cuda(q, k, v, None, True, W, scale)
+        rows.append(dict(
+            name="flash_attention", shape=[list(q.shape), list(k.shape)],
+            dtype=str(q.dtype), window=W,
+            ms=event_ms(lambda: fk.flash_attention_cuda(q, k, v, None, True,
+                                                        W, scale)),
+            plain_ms=event_ms(lambda: fops.flash_attention(
+                q, k, v, window=W, impl="ref"), reps=5, warmup=1),
+            library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), reps=10),
+            library_vs_kernel_max_abs_err=max_abs_err(lib_out, ours),
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            unmasked_pairs=pairs, flops=flops, bytes=nbytes,
+            f32_cuda_core_floor_ms=flops / PEAK_F32_OPS_PER_S * 1e3))
+    del q, k, v, mask, lib_out, ours
+    torch.cuda.empty_cache()
+
+    B, H, hd = WKV_PATH["B"], WKV_PATH["H"], WKV_PATH["hd"]
+    r, k, v, w, u, s0 = wkv_inputs(device, B, H, wkv_seq, hd)
+    tokens = B * H * wkv_seq
+    # what the function needs a token and head: r S (2 hd^2), w * S, k^T v
+    # and their sum (3 hd^2); the bonus r diag(u) k^T v has rank one,
+    # v_j * sum_i r_i u_i k_i (3 hd), added to y (2 hd)
+    flops = (5 * hd * hd + 5 * hd) * tokens
+    nbytes = (sum(t.numel() * t.element_size() for t in (r, k, v, w, u, s0))
+              + 4 * (r.numel() + s0.numel()))         # y and sT written
+    ops_ms = flops / PEAK_F32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    with torch.no_grad():
+        rows.append(dict(
+            name="wkv6", shape=[B, H, wkv_seq, hd],
+            dtype=f"r/k/v {r.dtype}, w {w.dtype}",
+            ms=event_ms(lambda: wk.wkv6_cuda(r, k, v, w, u, s0, None, 64)),
+            plain_ms=event_ms(lambda: wref.wkv6_ref(r, k, v, w, u, s0),
+                              reps=3, warmup=1),
+            library_ms=None, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            flops=flops, bytes=nbytes))
+    emit("fused_times", peak_bf16_ops_per_s=PEAK_BF16_OPS_PER_S,
+         peak_f32_ops_per_s=PEAK_F32_OPS_PER_S,
+         peak_bytes_per_s=PEAK_BYTES_PER_S, kernels=rows)
+    return rows
+
+
 def phase_profile(device, layers, seq):
     """Where a forward's time goes: device time by kernel name for the plain
     forward and for one swept forward (every float result a site, e8m7
@@ -510,7 +977,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--seq", type=int, default=8192)
-    ap.add_argument("--phases", default="kernels,main_path,small_ref,times")
+    ap.add_argument("--wkv-seq", type=int, default=4096)
+    ap.add_argument("--phases", default="kernels,fused_kernels,main_path,"
+                                        "fused_path,small_ref,times")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -519,22 +988,33 @@ def main():
               "runs on a CUDA device only", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails here if the checkout is missing)
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.quantize_em import kernel as qk
+    from repro_torch.kernels.rwkv6 import kernel as wk
 
     device = torch.device("cuda")
     t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
-    errs = {"quantize_em_static": None, "quantize_em_dynamic": None}
+    errs = dict.fromkeys(REPLACES)
     if "kernels" in phases:
-        errs = phase_kernels(device)
-    counts = {k: 0 for k in errs}
+        errs.update(phase_kernels(device))
+    if "fused_kernels" in phases:
+        errs.update(phase_fused_kernels(device, args.seq, args.wkv_seq))
+    counts = dict.fromkeys(REPLACES, 0)
     forward_times = {}
     if "main_path" in phases:
-        counts, forward_times = phase_main_path(device, args.layers, args.seq)
+        c, forward_times = phase_main_path(device, args.layers, args.seq)
+        counts.update({k: c[k] for k in ("quantize_em_static",
+                                         "quantize_em_dynamic")})
+    if "fused_path" in phases:
+        counts.update(phase_fused_path(device, args.seq, args.wkv_seq))
     if "small_ref" in phases:
         phase_small_ref(device)
-    rows = phase_times(device, args.seq) if "times" in phases else []
+    rows = []
+    if "times" in phases:
+        rows = phase_times(device, args.seq)
+        rows += phase_fused_times(device, args.seq, args.wkv_seq)
     if "profile" in phases:
         phase_profile(device, args.layers, args.seq)
     if forward_times:
@@ -545,21 +1025,24 @@ def main():
              overhead_table_e8m7=forward_times["forward_table_e8m7_ms"]
              / forward_times["forward_plain_ms"])
 
-    # the shapes the main path gives each kernel: the static kernel runs on
-    # the bf16 MLP tensors (scoped e5m7 policy), the dynamic one on every
-    # float result up to the f32 logits (e8m7 is one of its six tables)
+    # the shapes each path gives each kernel: the static kernel runs on the
+    # bf16 MLP tensors (scoped e5m7 policy), the dynamic one on every float
+    # result up to the f32 logits (e8m7 is one of its six tables); flash
+    # attention and WKV6 at the fused path's shapes
     pick = {"quantize_em_static": ("wi_out_bf16", "e5m7"),
             "quantize_em_dynamic": ("logits_f32", "e8m7")}
-    replaces = {"quantize_em_static": "src/repro/kernels/quantize_em/kernel.py:88",
-                "quantize_em_dynamic": "src/repro/kernels/quantize_em/kernel.py:121"}
+    sources = {"quantize_em_static": qk.SOURCE,
+               "quantize_em_dynamic": qk.SOURCE,
+               "flash_attention": fk.SOURCE, "wkv6": wk.SOURCE}
     summary = []
-    for name in ("quantize_em_static", "quantize_em_dynamic"):
+    for name in REPLACES:
         r = next((r for r in rows if r["name"] == name
-                  and (r["label"], r["fmt"]) == pick[name]), {})
+                  and (name not in pick
+                       or (r["label"], r["fmt"]) == pick[name])), {})
         err = errs[name] if errs[name] is not None else r.get("max_abs_err")
         summary.append(dict(
-            name=name, route="cuda", source=qk.SOURCE, replaces=replaces[name],
-            launches=counts[name], max_abs_err=err,
+            name=name, route="cuda", source=sources[name],
+            replaces=REPLACES[name], launches=counts[name], max_abs_err=err,
             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms"), shape=r.get("shape"),
@@ -567,8 +1050,12 @@ def main():
     emit("total", seconds=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
-    if "main_path" in phases:
-        check(all(k["launches"] > 0 for k in summary), summary)
+    # every kernel of each path that ran was launched on it
+    path_kernels = {"main_path": ("quantize_em_static", "quantize_em_dynamic"),
+                    "fused_path": ("flash_attention", "wkv6")}
+    for path, names in path_kernels.items():
+        if path in phases:
+            check(all(counts[n] > 0 for n in names), path, summary)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

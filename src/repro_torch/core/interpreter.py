@@ -76,6 +76,18 @@ extra site moves no value. Differences that other programs can show:
 
 None of these moves a site across a scope boundary, so a policy that is
 written per scope selects the same arithmetic in both packages.
+
+**Fused kernels.** The port's flash-attention and WKV6 kernels are
+``torch.library`` custom ops that a policy sees as the reference's
+``pallas_call`` (``kernels/fused.py``). When such an op is called with a
+format row wired in and its covered output is a site (``truncate``: a rule
+with no mask and no dot-input quantization matches it; ``truncate_sweep``:
+the output was enumerated), the walk replaces the row argument with the
+site's row -- the rule's format row, made once per plan and device, or
+``table[site]``, a view of the device table -- and skips the separate
+quantize pass for that output: the kernel's epilogue does it, bit for bit.
+Every other output (WKV6's recurrence state) keeps its separate pass, and a
+masked rule is never routed, as in the reference.
 """
 from __future__ import annotations
 
@@ -93,6 +105,7 @@ from repro_torch.core.policy import (
 )
 # the module, not its names: the quantizer imports core.formats, so either
 # package may be the first one imported
+from repro_torch.kernels import fused as _fused
 from repro_torch.kernels.quantize_em import ops as _q
 
 # primitives whose *inputs* we optionally quantize to emulate a low-precision
@@ -197,12 +210,17 @@ _PRIM_CACHE: Dict[Any, Tuple[str, bool]] = {}
 
 def prim_name(func) -> Tuple[str, bool]:
     """(primitive name a policy sees, whether the op writes in place) for
-    one aten overload. Raises ``NotImplementedError`` naming the op when it
-    has no entry in ``ATEN_TO_PRIM``."""
+    one aten overload or one of the port's fused kernels (``pallas_call``,
+    as in the reference). Raises ``NotImplementedError`` naming the op when
+    it is neither in ``ATEN_TO_PRIM`` nor a fused kernel."""
     hit = _PRIM_CACHE.get(func)
     if hit is not None:
         return hit
     schema = func._schema
+    if _fused.fused_outputs(func) is not None:
+        hit = (_fused.PRIM, bool(schema.is_mutable))
+        _PRIM_CACHE[func] = hit
+        return hit
     ns, _, name = schema.name.partition("::")
     base = name
     if base not in ATEN_TO_PRIM and base.endswith("_"):
@@ -306,10 +324,29 @@ def _maybe_quantize(val, rule: TruncationRule, impl: str):
     return q
 
 
+def _wired_row(func, prim: str, args) -> Optional[Tuple[int, int]]:
+    """(row argument index, covered output index) of a fused op called with
+    a format row wired in, else ``None`` (every aten op, and a fused op
+    called without a row: it has no epilogue to route into)."""
+    if prim != _fused.PRIM:          # one string compare for every aten op
+        return None
+    ri = _fused.row_argument(func)
+    if len(args) <= ri or args[ri] is None:
+        return None
+    (fi,) = _fused.fused_outputs(func)   # each fused op covers one output
+    return ri, fi
+
+
+def _with_row(args, ri: int, row):
+    return args[:ri] + (row,) + args[ri + 1:]
+
+
 class _WalkMode(TorchDispatchMode):
     """Shared walk: name the op, run it, hand each output to ``on_output``.
     Inside ``__torch_dispatch__`` the mode is off, so the quantizer's own
-    tensor ops are not intercepted again."""
+    tensor ops (and a fused kernel's plain version) are not intercepted
+    again. ``on_inputs`` may route a site's row into a fused op; the outputs
+    it names as routed skip ``on_output``."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         frame = _frames()[-1]
@@ -317,9 +354,12 @@ class _WalkMode(TorchDispatchMode):
         frame.pos = pos + 1
         prim, mutates = prim_name(func)
         kwargs = kwargs or {}
-        args, kwargs = self.on_inputs(frame, pos, prim, args, kwargs)
+        args, kwargs, routed = self.on_inputs(frame, pos, prim, func, args,
+                                              kwargs)
         out = func(*args, **kwargs)
         if isinstance(out, torch.Tensor):
+            if 0 in routed:
+                return out
             new = self.on_output(frame, pos, 0, prim, out)
             if new is not out:
                 if mutates:          # keep the aliasing the caller expects
@@ -330,7 +370,7 @@ class _WalkMode(TorchDispatchMode):
         if isinstance(out, (tuple, list)):
             res = []
             for i, o in enumerate(out):
-                if isinstance(o, torch.Tensor):
+                if isinstance(o, torch.Tensor) and i not in routed:
                     new = self.on_output(frame, pos, i, prim, o)
                     if new is not o and mutates:
                         o.copy_(new)
@@ -340,8 +380,9 @@ class _WalkMode(TorchDispatchMode):
             return type(out)(res) if isinstance(out, tuple) else res
         return out
 
-    def on_inputs(self, frame, pos, prim, args, kwargs):
-        return args, kwargs
+    def on_inputs(self, frame, pos, prim, func, args, kwargs):
+        """Returns ``(args, kwargs, routed output indices)``."""
+        return args, kwargs, ()
 
     def on_output(self, frame, pos, out_idx, prim, val):
         return val
@@ -369,15 +410,34 @@ class _PolicyMode(_WalkMode):
             self.plan[key] = rule
         return rule
 
-    def on_inputs(self, frame, pos, prim, args, kwargs):
-        if self.live and prim in _DOT_PRIMS:
+    def on_inputs(self, frame, pos, prim, func, args, kwargs):
+        if not self.live:
+            return args, kwargs, ()
+        if prim in _DOT_PRIMS:
             dt = next((a.dtype for a in args if _is_float(a)), None)
             if dt is not None:
                 rule0 = self._rule(frame, pos, -1, prim, dt)
                 if rule0 is not None and rule0.quantize_dot_inputs:
                     args = tuple(_maybe_quantize(a, rule0, self.impl)
                                  for a in args)
-        return args, kwargs
+            return args, kwargs, ()
+        wired = _wired_row(func, prim, args)
+        if wired is None:
+            return args, kwargs, ()
+        ri, fi = wired
+        rule = self._rule(frame, pos, fi, prim,
+                          _fused.covered_dtype(func, args))
+        if rule is None or rule.mask is not None or rule.quantize_dot_inputs:
+            return args, kwargs, ()
+        # the rule's format row replaces the wired one; made once per plan
+        # and device, so a call makes no host-to-device copy after the first
+        device = args[ri].device
+        key = ("fused_row", tuple(_q.format_row(rule.fmt)), device)
+        row = self.plan.get(key)
+        if row is None:
+            row = self.plan[key] = torch.tensor(
+                key[1], dtype=torch.int32, device=device)
+        return _with_row(args, ri, row), kwargs, (fi,)
 
     def on_output(self, frame, pos, out_idx, prim, val):
         if not self.live or not val.dtype.is_floating_point:
@@ -411,6 +471,18 @@ class _TableMode(_WalkMode):
             src = next(iter(self._tables.values()))
             t = self._tables[device] = src.to(device)
         return t
+
+    def on_inputs(self, frame, pos, prim, func, args, kwargs):
+        wired = _wired_row(func, prim, args)
+        if wired is None:
+            return args, kwargs, ()
+        ri, fi = wired
+        site = self.index.lookup(frame.path, pos, fi)
+        if site is None:
+            return args, kwargs, ()
+        # the site's row of the device table goes into the kernel's epilogue
+        row = self._table_on(args[ri].device)[site]
+        return _with_row(args, ri, row), kwargs, (fi,)
 
     def on_output(self, frame, pos, out_idx, prim, val):
         site = self.index.lookup(frame.path, pos, out_idx)

@@ -3,8 +3,9 @@
 Each kernel family is one or more ``.cu`` files with a plain C interface.
 They are compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/repro_torch/`` (override with ``REPRO_TORCH_BUILD_DIR``), keyed on a
-hash of the sources and flags, and loaded with ``ctypes``. Nothing here runs
-at import time: a build starts the first time a wrapper is handed a CUDA
+hash of the flags, the sources and every file beside them and in
+``kernels/csrc/`` (the shared include directory), so that a header edit
+rebuilds, and loaded with ``ctypes``. Nothing here runs at import time: a build starts the first time a wrapper is handed a CUDA
 tensor. There is no fallback: if ``nvcc`` is missing or the build fails the
 caller gets the error.
 
@@ -20,12 +21,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+# headers shared by several kernel families (the quantizer's device code)
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -72,11 +76,24 @@ class Build:
         return self.target
 
 
-def _key(sources: Sequence[Path], flags: Sequence[str]) -> str:
+def key_files(sources: Sequence[Path],
+              include_dirs: Sequence[Path] = (INCLUDE_DIR,)) -> List[Path]:
+    """The files a library's key hashes: the sources, then every file in
+    their own directories and in ``include_dirs`` (all a source can
+    include), each once."""
+    files = dict.fromkeys(Path(s).resolve() for s in sources)
+    for d in [Path(s).resolve().parent for s in sources] + list(include_dirs):
+        files.update(dict.fromkeys(
+            sorted(p.resolve() for p in Path(d).iterdir() if p.is_file())))
+    return list(files)
+
+
+def _key(sources: Sequence[Path], flags: Sequence[str],
+         include_dirs: Sequence[Path] = (INCLUDE_DIR,)) -> str:
     h = hashlib.sha256()
     for f in flags:
         h.update(f.encode())
-    for src in sources:
+    for src in key_files(sources, include_dirs):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -98,8 +115,10 @@ def start_build(name: str, sources: Sequence[os.PathLike],
             build = Build(name, target, None, None, ())
         else:
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *flags, "-o", str(tmp),
-                   *[str(s) for s in sources]]
+            # the include directory is not part of the key: its path differs
+            # between checkouts, the headers' contents are hashed instead
+            cmd = [find_nvcc(), *flags, "-I", str(INCLUDE_DIR),
+                   "-o", str(tmp), *[str(s) for s in sources]]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT)
             build = Build(name, target, proc, tmp, cmd)

@@ -7,6 +7,10 @@
   * ``'cuda'`` — the CUDA kernel; raises for a tensor that is not on the card
   * ``'ref'``  — the plain PyTorch version on whatever device the tensor is
                  on (for tests and for comparing the kernel with it)
+  * ``'interpret'`` — the plain version, for a tensor on the CPU only (the
+                 reference's Pallas interpret mode; ``truncate(...,
+                 impl='interpret')`` hands it down to every site); raises for
+                 a tensor on the card
 
 float64 is plain-only on every device, as in the reference package.
 
@@ -65,6 +69,11 @@ def _resolve_impl(x, impl: str) -> str:
         return impl
     if impl == "ref":
         return impl
+    if impl == "interpret":
+        if x.is_cuda:
+            raise ValueError("impl='interpret' runs the plain version on the "
+                             "CPU; the tensor is on the card")
+        return "ref"
     raise ValueError(f"unknown impl {impl!r}")
 
 

@@ -36,6 +36,13 @@ def test_every_module_is_found():
                  "repro_torch.kernels.quantize_em.kernel",
                  "repro_torch.kernels.quantize_em.ops",
                  "repro_torch.kernels.quantize_em.ref",
+                 "repro_torch.kernels.fused",
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.flash_attention.ref",
+                 "repro_torch.kernels.rwkv6.kernel",
+                 "repro_torch.kernels.rwkv6.ops",
+                 "repro_torch.kernels.rwkv6.ref",
                  "repro_torch.configs.h2o_danube_1_8b",
                  "repro_torch.models.transformer",
                  "repro_torch.models.convert"):
@@ -44,7 +51,9 @@ def test_every_module_is_found():
 
 @pytest.mark.parametrize("first", ["sorted", "reversed",
                                    "repro_torch.kernels.quantize_em.ops",
-                                   "repro_torch.models.model"])
+                                   "repro_torch.models.model",
+                                   "repro_torch.kernels.flash_attention.ops",
+                                   "repro_torch.kernels.rwkv6.ops"])
 def test_importing_the_port_pulls_in_no_jax_and_no_reference_package(first):
     """In a fresh interpreter, whichever module comes first (the quantizer
     and the core import each other's submodules), import every module of
@@ -145,3 +154,23 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
                          cwd=tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+@pytest.mark.parametrize("family,entry", [
+    ("flash_attention", "flash_attention_fwd"), ("rwkv6", "wkv6_fwd")])
+def test_fused_kernel_sources_are_in_the_package(family, entry):
+    """Each fused kernel is CUDA C++ in the package, with a plain C entry
+    point, and takes its epilogue from the quantizer's shared header."""
+    from repro_torch import kernels
+    mod = __import__(f"repro_torch.kernels.{family}.kernel",
+                     fromlist=["kernel"])
+    cu = os.path.join(ROOT, mod.SOURCE)
+    text = open(cu).read()
+    assert f'extern "C" int {entry}' in text
+    assert '#include "quantize_em.cuh"' in text
+    assert "store_epilogue" in text
+    assert mod.SOURCE.startswith("src/repro_torch/kernels/")
+    assert not re.search(r"\batomic[A-Z]", text)  # deterministic by design
+    names = {"flash_attention": "flash_attention", "rwkv6": "wkv6"}
+    wrapper = kernels.kernel_wrappers()[names[family]]
+    assert hasattr(wrapper, "launches")
