@@ -386,27 +386,70 @@ def phase_fused_kernels(device, seq, wkv_seq):
             finite=bool(torch.isfinite(o).all()),
             tol=2e-2 if dt == torch.bfloat16 else 2e-5))
 
+    # ---- flash bf16 on the tensor cores: the six cases as bf16 and two
+    # ragged S (keys past S masked, rows past S not stored), against the
+    # naive oracle at 2e-2 and against the f32-computed plain version within
+    # 2 bf16 units of |want| (+1e-6). At S = seq - 1 the chunked plain
+    # version cannot split S into chunks, so its reference is the S = seq
+    # result cut to seq - 1 rows (causal: no earlier row sees the last key),
+    # and the oracle, which holds (heads, S, S) f32 scores, runs on q heads
+    # 0-3 and their KV head
+    def hold_bf16(case, o, oracle, plain, heads=None):
+        sub = o if heads is None else o[:, :heads]
+        return dict(case=case, max_abs_err=max_abs_err(sub, oracle),
+                    max_bf16_ulps=bf16_ulps(o, plain),
+                    finite=bool(torch.isfinite(o).all()), tol=2e-2,
+                    tol_bf16_ulps=2.0)
+
+    flash_bf16 = []
+    bf16_cases = [c[:-1] for c in FLASH_CASES] + [(1, 4, 1, 200, 64, 64, True)]
+    for n, (B, Hq, Hkv, S, D, win, causal) in enumerate(bf16_cases):
+        r = np.random.RandomState(n)
+        q, k, v = (t(r.randn(B, H, S, D), torch.bfloat16)
+                   for H in (Hq, Hkv, Hkv))
+        o = fops.flash_attention(q, k, v, causal=causal, window=win,
+                                 impl="cuda")
+        flash_bf16.append(hold_bf16(
+            [B, Hq, Hkv, S, D, win, causal], o,
+            fref.attention_ref(q, k, v, causal=causal, window=win),
+            fops.flash_attention(q, k, v, causal=causal, window=win,
+                                 impl="ref")))
+    q, k, v = flash_path_inputs(device, seq)
+    cut = seq - 1
+    qc, kc, vc = (x[:, :, :cut] for x in (q, k, v))
+    o = fops.flash_attention(qc, kc, vc, window=4096, impl="cuda")
+    plain = fops.flash_attention(q, k, v, window=4096, impl="ref")[:, :, :cut]
+    flash_bf16.append(hold_bf16(
+        [1, 32, 8, cut, 80, 4096, True], o,
+        fref.attention_ref(qc[:, :4], kc[:, :1], vc[:, :1], window=4096),
+        plain, heads=4))
+    del q, k, v, qc, kc, vc, o, plain
+    torch.cuda.empty_cache()
+
     # ---- flash at the path's shape against the chunked plain version -----
     # (the naive oracle would hold (32, S, S) f32 scores); bf16 as on the
     # path, and f32 to see the kernel's arithmetic without bf16 rounding.
     # Most rows attend to 4096 keys, so a typical |out| is ~0.03 and an
     # absolute bf16 limit would be loose: both sides compute in f32 and round
     # once to bf16, so the bf16 output is held within 2 bf16 units of |want|
-    # (plus 1e-6), the f32 one within 2e-5
+    # (plus 1e-6), the f32 one within 2e-5. No atomics and a fixed order: a
+    # second launch gives the same bits
     W = 4096
     flash_path = {}
     for dt, tol in ((torch.bfloat16, 2.0), (torch.float32, 2e-5)):
         q, k, v = flash_path_inputs(device, seq, dt)
         o = fops.flash_attention(q, k, v, window=W, impl="cuda")
+        again = fops.flash_attention(q, k, v, window=W, impl="cuda")
         want = fops.flash_attention(q, k, v, window=W, impl="ref")
         err = max_abs_err(o, want)
         flash_path[str(dt)] = dict(
             max_abs_err=err, finite=bool(torch.isfinite(o).all()),
             max_abs_out=float(o.float().abs().max()),
             mean_abs_out=float(o.float().abs().mean()),
+            rerun_mismatches=bit_mismatches(o, again),
             **(dict(max_bf16_ulps=bf16_ulps(o, want), tol_bf16_ulps=tol)
                if dt == torch.bfloat16 else dict(tol=tol)))
-        del q, k, v, o, want
+        del q, k, v, o, again, want
     torch.cuda.empty_cache()
 
     # ---- wkv6: the reference's cases ---------------------------------------
@@ -478,22 +521,29 @@ def phase_fused_kernels(device, seq, wkv_seq):
             fused["wkv6_sT_touched"] += bit_mismatches(sTf, sTp)
     torch.cuda.synchronize()
 
-    emit("fused_kernels", flash_cases=flash_cases, flash_path=flash_path,
+    emit("fused_kernels", flash_cases=flash_cases, flash_bf16=flash_bf16,
+         flash_path=flash_path,
          wkv6_cases=wkv_cases, wkv6_path=wkv_path,
          wkv6_chunk_mismatches=chunk_bits,
          fused_rows=[n for n, _ in FUSED_ROWS], fused_mismatches=fused,
          tolerance="flash 2e-5 f32 / 2e-2 bf16 (max abs) on the reference "
                    "cases, 2e-5 f32 / 2 bf16 units of |want| + 1e-6 at the "
-                   "path shape; wkv6 1e-4 on the "
+                   "path shape; the bf16 cases and ragged S 2e-2 against "
+                   "the oracle and 2 bf16 units of |want| + 1e-6 against the "
+                   "plain version; two launches bit-equal; wkv6 1e-4 on the "
                    "reference cases, 1e-4 * max|y| at the path shape; sT, "
                    "chunk invariance and fused vs unfused bit for bit")
     for c in flash_cases:
         check(c["finite"] and c["max_abs_err"] < c["tol"], "flash", c)
+    for c in flash_bf16:
+        check(c["finite"] and c["max_abs_err"] < c["tol"]
+              and c["max_bf16_ulps"] <= c["tol_bf16_ulps"], "flash bf16", c)
     for k, c in flash_path.items():
         check(c["finite"] and (c["max_bf16_ulps"] <= c["tol_bf16_ulps"]
                                if "tol_bf16_ulps" in c
                                else c["max_abs_err"] < c["tol"]),
               "flash path", k, c)
+        check(c["rerun_mismatches"] == 0, "flash path determinism", k, c)
     for c in wkv_cases:
         check(c["y_err"] < c["tol"] and c["sT_err"] < c["tol"], "wkv6", c)
     check(wkv_path["finite"] and wkv_path["y_err"] <= wkv_path["tol"]
@@ -870,37 +920,55 @@ def phase_fused_times(device, seq, wkv_seq):
     from repro_torch.kernels.flash_attention import kernel as fk, ops as fops
     from repro_torch.kernels.rwkv6 import kernel as wk, ref as wref
 
+    # flash attention at the path's shape, bf16 (the tensor-core kernel) and
+    # f32 (the CUDA-core kernel), each beside SDPA on the same inputs. The
+    # bound counts what the function needs: 2 (D + Dv) flop an unmasked
+    # pair (flops), at the tensor-core rate for bf16 and at the f32 rate,
+    # the f32 floor, for f32; kernel_flops is what the bf16 kernel gives the
+    # tensor cores: S = Q K^T and P V three times (P split in three bf16
+    # terms)
     rows = []
     W = 4096
-    q, k, v = flash_path_inputs(device, seq)
-    scale = 1.0 / float(np.sqrt(q.shape[-1]))
     pairs = 32 * flash_pairs(seq, W)
-    flops = pairs * 2 * (q.shape[-1] + v.shape[-1])
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    ops_ms = flops / PEAK_BF16_OPS_PER_S * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     i = torch.arange(seq, device=device)
     mask = (i[:, None] >= i[None, :]) & ((i[:, None] - i[None, :]) < W)
-    with torch.no_grad():
-        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                 enable_gqa=True)
-        ours = fk.flash_attention_cuda(q, k, v, None, True, W, scale)
-        rows.append(dict(
-            name="flash_attention", shape=[list(q.shape), list(k.shape)],
-            dtype=str(q.dtype), window=W,
-            ms=event_ms(lambda: fk.flash_attention_cuda(q, k, v, None, True,
-                                                        W, scale)),
-            plain_ms=event_ms(lambda: fops.flash_attention(
-                q, k, v, window=W, impl="ref"), reps=5, warmup=1),
-            library_ms=event_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True), reps=10),
-            library_vs_kernel_max_abs_err=max_abs_err(lib_out, ours),
-            bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            unmasked_pairs=pairs, flops=flops, bytes=nbytes,
-            f32_cuda_core_floor_ms=flops / PEAK_F32_OPS_PER_S * 1e3))
-    del q, k, v, mask, lib_out, ours
-    torch.cuda.empty_cache()
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = flash_path_inputs(device, seq, dt)
+        D, Dv = q.shape[-1], v.shape[-1]
+        scale = 1.0 / float(np.sqrt(D))
+        flops = pairs * 2 * (D + Dv)
+        kernel_flops = pairs * 2 * (D + 3 * Dv) if dt == torch.bfloat16 \
+            else flops
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                     + q.numel())
+        peak = PEAK_BF16_OPS_PER_S if dt == torch.bfloat16 \
+            else PEAK_F32_OPS_PER_S
+        ops_ms = flops / peak * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        with torch.no_grad():
+            lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                     enable_gqa=True)
+            ours = fk.flash_attention_cuda(q, k, v, None, True, W, scale)
+            rows.append(dict(
+                name="flash_attention", label=f"path_{str(dt)[6:]}", fmt=None,
+                shape=[list(q.shape), list(k.shape)], dtype=str(q.dtype),
+                window=W,
+                ms=event_ms(lambda: fk.flash_attention_cuda(
+                    q, k, v, None, True, W, scale)),
+                plain_ms=event_ms(lambda: fops.flash_attention(
+                    q, k, v, window=W, impl="ref"), reps=5, warmup=1),
+                library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), reps=10),
+                library_vs_kernel_max_abs_err=max_abs_err(lib_out, ours),
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                unmasked_pairs=pairs, flops=flops, kernel_flops=kernel_flops,
+                bytes=nbytes,
+                f32_cuda_core_floor_ms=flops / PEAK_F32_OPS_PER_S * 1e3))
+        rows[-1]["bound_share"] = rows[-1]["bound_ms"] / rows[-1]["ms"]
+        del q, k, v, lib_out, ours
+        torch.cuda.empty_cache()
+    del mask
 
     B, H, hd = WKV_PATH["B"], WKV_PATH["H"], WKV_PATH["hd"]
     r, k, v, w, u, s0 = wkv_inputs(device, B, H, wkv_seq, hd)
@@ -1028,9 +1096,11 @@ def main():
     # the shapes each path gives each kernel: the static kernel runs on the
     # bf16 MLP tensors (scoped e5m7 policy), the dynamic one on every float
     # result up to the f32 logits (e8m7 is one of its six tables); flash
-    # attention and WKV6 at the fused path's shapes
+    # attention (bf16, as the fused path runs it) and WKV6 at the fused
+    # path's shapes
     pick = {"quantize_em_static": ("wi_out_bf16", "e5m7"),
-            "quantize_em_dynamic": ("logits_f32", "e8m7")}
+            "quantize_em_dynamic": ("logits_f32", "e8m7"),
+            "flash_attention": ("path_bfloat16", None)}
     sources = {"quantize_em_static": qk.SOURCE,
                "quantize_em_dynamic": qk.SOURCE,
                "flash_attention": fk.SOURCE, "wkv6": wk.SOURCE}
@@ -1038,7 +1108,7 @@ def main():
     for name in REPLACES:
         r = next((r for r in rows if r["name"] == name
                   and (name not in pick
-                       or (r["label"], r["fmt"]) == pick[name])), {})
+                       or (r.get("label"), r.get("fmt")) == pick[name])), {})
         err = errs[name] if errs[name] is not None else r.get("max_abs_err")
         summary.append(dict(
             name=name, route="cuda", source=sources[name],

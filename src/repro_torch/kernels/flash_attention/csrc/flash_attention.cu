@@ -7,41 +7,74 @@
 //       (body _attn_kernel)                   -> flash_attention_fwd
 // It computes what _attn_kernel computes -- running (max, denominator,
 // accumulator) over KV blocks in f32, the -1e30 mask constant, output cast
-// to q's dtype, then the row's quantize on the stored value -- but is laid
-// out for the card rather than carried over block by block:
+// to q's dtype, then the row's quantize on the stored value -- with two
+// kernels behind the one entry point:
 //
-//   * one block owns BQ = 64 query rows of ONE query head and reads K/V of
-//     its KV head h / (Hq / Hkv) directly: K and V are never expanded to Hq.
-//     K/V tiles of BK = 64 keys are staged through shared memory (dynamic
-//     shared memory, opted in above 48 KB with cudaFuncSetAttribute);
-//   * 256 threads as 16 x 16: thread (ty, tx) owns rows ty*4 .. ty*4+3 and
-//     the key columns tx + 16 j (scores) / value columns tx + 16 j (output);
-//     a row's max and sum are reduced over its 16 lanes with shuffles, in a
-//     fixed order;
-//   * blocks above the diagonal are skipped, as the reference does, and so
-//     are blocks wholly below the sliding window. Skipping those is exact:
-//     in the reference such a leading block is fully masked, gives
-//     p = exp(-1e30 - (-1e30)) = 1 only while the row's running max is
-//     still -1e30, and the first block with an unmasked key multiplies that
-//     state by corr = exp(-1e30 - m) = 0, which is the state a skipped
-//     block leaves (m = -1e30, l = 0, acc = 0);
-//   * any S: keys at or past S are masked like the rest, rows at or past S
-//     are computed on zeros and not stored (the reference's S % block == 0
-//     is a TPU tiling need).
+//   bf16 inputs -> flash_fwd_bf16_sm90 (flash_attention_sm90.cuh), on the
+//                  tensor cores;
+//   f32 inputs  -> flash_fwd_kernel below, exact f32 on the CUDA cores (the
+//                  reference's f32 tolerance, 2e-5, rules out TF32).
 //
-// What bounds it on this card: operations. At the main path's shape
-// (1 x 32 q heads x 8192 x 80, window 4096) the unmasked (q, k) pairs need
-// ~258 GFLOP and ~0.8 G exponentials; the bytes (~105 MB) take 0.03 ms.
-// This first kernel does the products in exact f32 on the CUDA cores
-// (__fmaf_rn; no TF32 -- the f32 tolerance of the reference's tests is
-// 2e-5), so it cannot go under 258 GFLOP / 67 TFLOP/s = 3.9 ms, against
-// 0.26 ms for the bf16 tensor cores. bf16 inputs take the same f32 path:
-// a product of two bf16 values is exact in f32. Tensor cores (mma/wgmma on
-// a bf16 P) are later work.
+// What bounds it on this card: operations. At the fused path's shape
+// (1 x 32 q heads x 8192 x 80, 8 KV heads, causal, window 4096) the
+// unmasked (q, k) pairs need 257.7 GFLOP: 0.261 ms at 989 TFLOP/s bf16, or
+// 3.85 ms at 67 TFLOP/s f32; ~0.8 G exponentials (~0.2 ms on the
+// special-function units); the bytes (~105 MB) take 0.03 ms.
 //
-// Determinism: no atomics, one fixed reduction order, so the same inputs
-// give the same bits on every run -- which "fused == unfused followed by
-// quantize_em_dynamic, bit for bit" needs.
+// The bf16 kernel. The f32-computed plain version is the yardstick: the
+// output must stay within 2 bf16 units (+1e-6) of it, and an output near
+// zero has a tiny unit, so the kernel has to be good to ~1e-6 absolute.
+// Two things stand in the way, and the design pays for both:
+//   * P rounded once to bf16 before P V is off by ~3e-5 absolute; split in
+//     two bf16 terms it is still off by up to 2^-16 per term, which shows in
+//     rows with few keys. P = P_hi + P_mid + P_lo (each bf16, the
+//     differences exact) is p within 2^-24, and P V is three tensor-core
+//     products: 2x the single-rounding design's work, 640 flop per
+//     unmasked pair at D = Dv = 80 (0.52 ms at the peak rate);
+//   * the tensor cores' f32 sums lose ~2^-23 of the accumulator's
+//     magnitude a step, and a 4096-key row takes ~770 steps into one
+//     accumulator. Each tile's P V goes into a fresh accumulator (12 steps,
+//     the small terms first), and O = O * corr + T is summed in f32 on the
+//     CUDA cores.
+// The scale multiplies S in f32 after the product (q * scale is not
+// bf16-exact), folded with log2(e) into one constant for ex2; l sums the
+// f32 p. Against what held the CUDA-core kernel back:
+//
+//   * products on the CUDA cores: S = Q K^T and P V are wgmma with bf16
+//     operands and f32 accumulators (Q and K from shared memory, P from
+//     registers straight from the S accumulator's layout);
+//   * one shared-memory load per two FMAs: wgmma reads its shared-memory
+//     operands itself, at tile granularity;
+//   * synchronous K/V loads, three barriers a tile: one thread streams K/V
+//     tiles by TMA into a 4-stage ring (mbarriers), straight from the
+//     strided (B, S, H, D) views, Q once per block, and no thread waits for
+//     a copy it did not need; the softmax of tile i+1 runs while the P V
+//     product of tile i is on the tensor cores;
+//   * K/V fetched once per q head: a block is 128 rows of one q head (two
+//     warpgroups share every tile), and the q heads of one KV head are
+//     neighbours in the grid, so they read its tiles from L2 together.
+//
+// Only tiles that cross the diagonal, the window's edge or S compute the
+// mask. Tiles wholly above the diagonal or below the window are skipped in
+// both kernels, and that is exact: in the reference such a leading block is
+// fully masked, gives p = exp(-1e30 - (-1e30)) = 1 only while the row's
+// running max is still -1e30, and the first block with an unmasked key
+// multiplies that state by corr = exp(-1e30 - m) = 0, which is the state a
+// skipped block leaves (m = -1e30, l = 0, acc = 0). Any S: keys at or past S
+// are masked like the rest, rows at or past S are computed on zeros and not
+// stored (the reference's S % block == 0 is a TPU tiling need).
+//
+// The f32 kernel (flash_fwd_kernel, f32 inputs only): one block owns BQ = 64
+// query rows of one q head and reads K/V of its KV head h / (Hq / Hkv),
+// staged through shared memory in tiles of BK = 64 keys; 256 threads as
+// 16 x 16, thread (ty, tx) owns rows ty*4 .. ty*4+3 and key columns
+// tx + 16 j (scores) / value columns tx + 16 j (output); a row's max and sum
+// are reduced over its 16 lanes with shuffles, in a fixed order. It cannot
+// go under the f32 floor of 3.85 ms.
+//
+// Determinism: no atomics, one fixed reduction order in both kernels, so the
+// same inputs give the same bits on every run -- which "fused == unfused
+// followed by quantize_em_dynamic, bit for bit" needs.
 //
 // Build with the quantizer's flags (-ftz=false -prec-div=true
 // -prec-sqrt=true -fmad=false): the epilogue is the quantizer's own device
@@ -49,9 +82,11 @@
 // attention math writes its fmas out as __fmaf_rn.
 //
 // Plain C interface (loaded with ctypes): launches on the given stream,
-// never synchronises, never allocates, returns cudaGetLastError().
+// never synchronises, never allocates, returns cudaGetLastError() (or the
+// CUresult of a refused tensor map plus 10000).
 
 #include "quantize_em.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -275,7 +310,9 @@ enum { DT_F32 = 0, DT_BF16 = 1 };
 // q (B, Hq, S, D), k (B, Hkv, S, D), v (B, Hkv, S, Dv) with unit stride on
 // the last axis and the given strides (in elements) on the others; out
 // (B, Hq, S, Dv) contiguous, q's dtype. row: a (4,) int32 format row in
-// device memory, or null for no epilogue. window <= 0: no window.
+// device memory, or null for no epilogue. window <= 0: no window. bf16 also
+// needs what flash_fwd_bf16 states (D a multiple of 16; k, v in TMA's
+// terms); the binding makes the copy that gives it that.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, const void* row,
     long long qs_b, long long qs_h, long long qs_s,
@@ -286,6 +323,12 @@ extern "C" int flash_attention_fwd(
   if (B <= 0 || S <= 0) return 0;
   if (D <= 0 || D > 128 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16)
+    return fa_sm90::flash_fwd_bf16(q, k, v, out, row, qs_b, qs_h, qs_s, ks_b,
+                                   ks_h, ks_s, vs_b, vs_h, vs_s, B, Hq, Hkv,
+                                   S, D, Dv, causal, window, scale, s);
+  if (dtype != DT_F32) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.out = out;
   a.row = static_cast<const int32_t*>(row);
@@ -294,10 +337,5 @@ extern "C" int flash_attention_fwd(
   a.vs_b = vs_b; a.vs_h = vs_h; a.vs_s = vs_s;
   a.Hq = Hq; a.Hkv = Hkv; a.S = S; a.D = D;
   a.causal = causal; a.window = window; a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DT_F32: return launch_dv<float>(a, B, Dv, s);
-    case DT_BF16: return launch_dv<__nv_bfloat16>(a, B, Dv, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_dv<float>(a, B, Dv, s);
 }

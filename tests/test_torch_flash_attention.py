@@ -215,3 +215,86 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(shapes, dtype,
             fk.check_shapes(q, k, v)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fk.flash_attention_cuda(q, k, v, None, True, None, 1.0)
+
+
+def bf16_ulps(got, want):
+    """The largest |got - want| less 1e-6, in units of the bf16 spacing at
+    |want| (``chip_smoke.py``'s measure)."""
+    got, want = got.double(), want.double()
+    _, e = torch.frexp(want.abs().clamp_min(torch.finfo(torch.bfloat16).tiny))
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    return float((((got - want).abs() - 1e-6).clamp_min(0) / ulp).max())
+
+
+def split_bf16(p, terms):
+    """p (f32) as ``terms`` bf16 values whose sum approximates it: each term
+    rounds what the ones before it left (the differences are exact)."""
+    parts, rest = [], p
+    for _ in range(terms):
+        part = rest.to(torch.bfloat16).float()
+        parts.append(part)
+        rest = rest - part
+    return parts
+
+
+@pytest.mark.parametrize("terms,within", [(1, False), (2, False), (3, True)],
+                         ids=["rounded-once", "hi-lo", "hi-mid-lo"])
+def test_p_split_in_three_bf16_terms_keeps_two_bf16_units(terms, within):
+    """The bf16 kernel's arithmetic on P, emulated on the reference's case
+    (2, 4 q heads, 1 KV head, S 128, D 32, window 32) with the inputs
+    ``chip_smoke.py`` gives it (numpy seed 2, cast to bf16): S = q k^T in
+    f32, the scale after the product, p = exp(s - max) and l = sum p in
+    f32, then P V with P as bf16 terms (the products exact, summed in f64
+    here). The output, rounded to bf16, is held against an f64 attention
+    within 2 bf16 units of |want| + 1e-6, the card's check, which outputs
+    near zero (a tiny unit) make strict. P rounded once misses it by
+    thousands of units; two terms (2^-17 of p left) by a few, as the card
+    measured; three terms hold all of an f32 p and keep it."""
+    B, Hq, Hkv, S, D, W = 2, 4, 1, 128, 32, 32
+    r = np.random.RandomState(2)
+    q, k, v = (torch.from_numpy(r.randn(B, H, S, D).astype(np.float32))
+               .to(torch.bfloat16).float() for H in (Hq, Hkv, Hkv))
+    k, v = (x.repeat_interleave(Hq // Hkv, 1) for x in (k, v))
+    scale = np.float32(1.0 / np.sqrt(D))
+    i = torch.arange(S)
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+    s64 = (q.double() @ k.double().transpose(-1, -2)) * float(scale)
+    want = torch.softmax(s64.masked_fill(~mask, -np.inf), -1) @ v.double()
+    s = ((q @ k.transpose(-1, -2)) * scale).masked_fill(~mask, -1e30)
+    p = torch.exp(s - s.max(-1, keepdim=True).values)
+    l = p.sum(-1, keepdim=True)
+    P = sum(t.double() for t in split_bf16(p, terms))
+    got = ((P @ v.double()) / l.double()).float().to(torch.bfloat16)
+    assert (bf16_ulps(got, want) <= 2.0) == within
+
+
+def test_split_terms_bound_the_relative_error():
+    """What each form of P keeps of p (round to nearest, the differences
+    exact): one bf16 term 2^-8 relative, two 2^-17, three all 24 bits of
+    an f32 p."""
+    r = np.random.RandomState(1)
+    p = torch.from_numpy(np.exp(-r.rand(100000) * 20).astype(np.float32))
+    for terms, bound in ((1, 2.0 ** -8), (2, 2.0 ** -17), (3, 0.0)):
+        rel = ((sum(t.double() for t in split_bf16(p, terms)) - p.double())
+               .abs() / p.double()).max()
+        assert float(rel) <= bound
+        assert float(rel) >= bound / 2
+
+
+def test_bf16_operands_pad_to_one_head_dim_and_keep_aligned_views():
+    """The bf16 kernel reads q, k, v through TMA at one head dim: the
+    binding pads to the smallest of ``HEAD_DIMS_V`` that holds D and Dv,
+    passes the path's permuted views through uncopied, and copies a base
+    off the 16-byte alignment."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    bf = torch.bfloat16
+    q, k, v = (torch.zeros(s, dtype=bf) for s in
+               ((1, 4, 8, 24), (1, 2, 8, 24), (1, 2, 8, 32)))
+    q2, k2, v2 = fk.bf16_operands(q, k, v)
+    assert q2.shape[-1] == k2.shape[-1] == v2.shape[-1] == 32
+    x = torch.randn(1, 8, 2, 80).to(bf).permute(0, 2, 1, 3)   # (B,S,H,D) seen
+    q2, k2, v2 = fk.bf16_operands(x, x, x)                      # as (B,H,S,D)
+    assert q2 is x and k2 is x and v2 is x
+    off = torch.randn(2000).to(bf)[1:641].view(1, 1, 8, 80)
+    q2, _, _ = fk.bf16_operands(off, off, off)
+    assert q2 is not off and q2.data_ptr() % 16 == 0 and torch.equal(q2, off)
