@@ -32,7 +32,10 @@ Options (for debugging at a smaller size; the defaults are the full run):
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,fused_path,small_ref,times`` or adds
-``profile`` (device time by kernel name for one plain and one swept forward).
+``profile`` (device time by kernel name for one plain and one swept forward)
+or ``isa`` (registers and spills of every WKV6 kernel, from ``nvcc -Xptxas
+-v``); ``fused_times`` alone times the flash-attention and WKV6 kernels
+without the quantizers (``times`` includes it).
 """
 from __future__ import annotations
 
@@ -482,7 +485,8 @@ def phase_fused_kernels(device, seq, wkv_seq):
                     tol=1e-4 * y_max, sT_mismatches=bit_mismatches(sT, sT2),
                     finite=bool(torch.isfinite(y).all()))
     chunk_bits = 0
-    for chunk in (16, 100, 200):
+    # 4096: more tokens than two stages hold, capped by the kernel
+    for chunk in (16, 100, 200, 4096):
         yc, sc = wops.wkv6(*args, chunk=chunk, impl="cuda")
         chunk_bits += bit_mismatches(yc, y) + bit_mismatches(sc, sT)
     r = np.random.RandomState(7)
@@ -493,7 +497,35 @@ def phase_fused_kernels(device, seq, wkv_seq):
     for chunk in (32, 128, 48):
         yc, sc = wops.wkv6(*wsmall, chunk=chunk, impl="cuda")
         chunk_bits += bit_mismatches(yc, base[0]) + bit_mismatches(sc, base[1])
-    del y, sT, y2, sT2
+    again = wops.wkv6(*args, impl="cuda")
+    wkv_path["rerun_mismatches"] = bit_mismatches(again[0], y) \
+        + bit_mismatches(again[1], sT)
+    del y, sT, y2, sT2, again
+
+    # ---- wkv6: B = 2 with S not a multiple of chunk at hd = 32, and views
+    # the kernel's 16-byte loads cannot take (an odd offset into a wider
+    # tensor: the wrapper copies them) against the same values contiguous
+    r = np.random.RandomState(8)
+    B, H, S, hd = 2, 3, 203, 32
+    ragged = [t(r.randn(B, H, S, hd)) for _ in range(3)]
+    ragged += [t(1 / (1 + np.exp(-r.randn(B, H, S, hd))) * 0.98 + 0.01),
+               t(r.randn(H, hd) * 0.1), t(r.randn(B, H, hd, hd) * 0.1)]
+    y, sT = wops.wkv6(*ragged, chunk=64, impl="cuda")
+    y2, sT2 = wref.wkv6_ref(*ragged)
+    wkv_cases.append(dict(case=[B, H, S, hd, 64], y_err=max_abs_err(y, y2),
+                          sT_err=max_abs_err(sT, sT2),
+                          sT_mismatches=bit_mismatches(sT, sT2), tol=1e-4))
+    wide = [torch.zeros(B, H, S, hd + 1, device=device, dtype=x.dtype)
+            for x in ragged[:4]]
+    views = []
+    for x, big in zip(ragged[:4], wide):
+        big[..., 1:] = x
+        views.append(big[..., 1:])
+    yv, sTv = wops.wkv6(*views, *ragged[4:], chunk=64, impl="cuda")
+    wkv_unaligned = dict(case=[B, H, S, hd, 64], offset_bytes=4,
+                         y_mismatches=bit_mismatches(yv, y),
+                         sT_mismatches=bit_mismatches(sTv, sT))
+    del y, sT, y2, sT2, yv, sTv, wide, views
 
     # ---- fused epilogue == unfused kernel + quantize_em_dynamic ------------
     r = np.random.RandomState(0)
@@ -524,7 +556,7 @@ def phase_fused_kernels(device, seq, wkv_seq):
     emit("fused_kernels", flash_cases=flash_cases, flash_bf16=flash_bf16,
          flash_path=flash_path,
          wkv6_cases=wkv_cases, wkv6_path=wkv_path,
-         wkv6_chunk_mismatches=chunk_bits,
+         wkv6_unaligned=wkv_unaligned, wkv6_chunk_mismatches=chunk_bits,
          fused_rows=[n for n, _ in FUSED_ROWS], fused_mismatches=fused,
          tolerance="flash 2e-5 f32 / 2e-2 bf16 (max abs) on the reference "
                    "cases, 2e-5 f32 / 2 bf16 units of |want| + 1e-6 at the "
@@ -545,9 +577,13 @@ def phase_fused_kernels(device, seq, wkv_seq):
               "flash path", k, c)
         check(c["rerun_mismatches"] == 0, "flash path determinism", k, c)
     for c in wkv_cases:
-        check(c["y_err"] < c["tol"] and c["sT_err"] < c["tol"], "wkv6", c)
+        check(c["y_err"] < c["tol"] and c["sT_mismatches"] == 0, "wkv6", c)
     check(wkv_path["finite"] and wkv_path["y_err"] <= wkv_path["tol"]
           and wkv_path["sT_mismatches"] == 0, "wkv6 path", wkv_path)
+    check(wkv_path["rerun_mismatches"] == 0, "wkv6 determinism", wkv_path)
+    check(wkv_unaligned["y_mismatches"] == 0
+          and wkv_unaligned["sT_mismatches"] == 0, "wkv6 views",
+          wkv_unaligned)
     check(chunk_bits == 0, "wkv6 chunk invariance", chunk_bits)
     check(sum(fused.values()) == 0, "fused vs unfused", fused)
     return {"flash_attention": flash_path[str(torch.bfloat16)]["max_abs_err"],
@@ -981,6 +1017,12 @@ def phase_fused_times(device, seq, wkv_seq):
               + 4 * (r.numel() + s0.numel()))         # y and sT written
     ops_ms = flops / PEAK_F32_OPS_PER_S * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    # the least the contract lets the kernel issue: 4 f32 instructions per
+    # state element and token (k v, the fma of r with S, w * S, + k v; w * S
+    # + k v may not be contracted), one warp instruction per 32 elements, on
+    # 132 SMs x 4 schedulers at the 1.98 GHz of the data-sheet f32 rate
+    warp_instr = 4 * hd * hd * tokens / 32
+    floor_ms = warp_instr / (132 * 4 * 1.98e9) * 1e3
     with torch.no_grad():
         rows.append(dict(
             name="wkv6", shape=[B, H, wkv_seq, hd],
@@ -990,7 +1032,9 @@ def phase_fused_times(device, seq, wkv_seq):
                               reps=3, warmup=1),
             library_ms=None, bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            flops=flops, bytes=nbytes))
+            instruction_floor_ms=floor_ms, flops=flops, bytes=nbytes))
+        rows[-1]["bound_share"] = rows[-1]["bound_ms"] / rows[-1]["ms"]
+        rows[-1]["instruction_floor_share"] = floor_ms / rows[-1]["ms"]
     emit("fused_times", peak_bf16_ops_per_s=PEAK_BF16_OPS_PER_S,
          peak_f32_ops_per_s=PEAK_F32_OPS_PER_S,
          peak_bytes_per_s=PEAK_BYTES_PER_S, kernels=rows)
@@ -1041,6 +1085,40 @@ def phase_profile(device, layers, seq):
                       for k, ms, c in rows[:14]])
 
 
+def phase_isa():
+    """Registers and spills of every WKV6 kernel (``nvcc -Xptxas -v`` with
+    the library's own flags), which no profiler on the card's machine
+    shows. Fails if the main path's kernel (bf16 r/k/v, f32 w, hd 64)
+    spills. Not part of the default run: ``--phases isa``."""
+    import re
+    import tempfile
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize_em.kernel import _FLAGS
+    from repro_torch.kernels.rwkv6 import kernel as wk
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = subprocess.run(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, *_FLAGS,
+             "-I", str(_build.INCLUDE_DIR), "-Xptxas", "-v",
+             "-o", os.path.join(tmp, "wkv6.so"), str(wk._SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=600,
+            check=True).stdout.decode()
+    # keyed by the mangled template arguments: r/k/v type, w type, HD, R,
+    # JT, JB, e.g. 13__nv_bfloat16fLi64ELi4ELi2ELi16
+    kernels = {m.group(1): dict(spill_store_bytes=int(m.group(2)),
+                                registers=int(m.group(3)))
+               for m in re.finditer(
+                   r"Function properties for \S*wkv6_kernelI(\w+?)"
+                   r"EEEvNS_4ArgsE\n[^\n]*?(\d+) bytes spill stores"
+                   r"[^\n]*\n[^\n]*?Used (\d+) registers", log)}
+    path = kernels.get("13__nv_bfloat16fLi64ELi4ELi2ELi16")
+    emit("isa", kernels=kernels)
+    check(len(kernels) == 4 * len(wk.HEAD_DIMS), "isa: kernels found",
+          sorted(kernels))
+    check(path is not None and path["spill_store_bytes"] == 0,
+          "isa: the path kernel spills", path)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None)
@@ -1082,9 +1160,12 @@ def main():
     rows = []
     if "times" in phases:
         rows = phase_times(device, args.seq)
+    if "times" in phases or "fused_times" in phases:
         rows += phase_fused_times(device, args.seq, args.wkv_seq)
     if "profile" in phases:
         phase_profile(device, args.layers, args.seq)
+    if "isa" in phases:
+        phase_isa()
     if forward_times:
         emit("forward_times", **forward_times,
              overhead_truncate_scoped=forward_times[

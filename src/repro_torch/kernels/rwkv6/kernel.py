@@ -8,9 +8,11 @@ launch, never at import, with the quantizer's flags: the epilogue is the
 quantizer's own device code.
 
 The wrapper takes CUDA tensors only, launches on torch's current stream,
-does not synchronise, allocates nothing but its outputs (and float32
-contiguous copies of ``u`` / ``s0`` where they are not already so), raises
-if the launch is refused, and counts its launches in ``wkv6_cuda.launches``.
+does not synchronise, allocates nothing but its outputs (float32
+contiguous copies of ``u`` / ``s0`` where they are not already so, and a
+contiguous copy of any of r / k / v / w that the kernel's 16-byte loads
+cannot read as it is: see ``aligned``), raises if the launch is refused, and
+counts its launches in ``wkv6_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -25,8 +27,6 @@ from repro_torch.kernels.quantize_em.kernel import _FLAGS
 _SOURCE = Path(__file__).parent / "csrc" / "wkv6.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64)
-# four staged (chunk, hd) f32 tiles must fit a block's shared memory
-_MAX_SMEM = 232448
 
 SOURCE = "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu"
 
@@ -66,10 +66,25 @@ def check_shapes(r, k, v, w, u, s0):
                         f"{r.dtype}, {k.dtype}, {v.dtype}, {w.dtype}")
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernel's 16-byte loads can read it as it is (unit stride
+    on the last axis, a 16-byte aligned base, the other strides multiples of
+    16 bytes), else a contiguous copy. A fresh allocation is aligned, and
+    the head dims are multiples of 16 bytes."""
+    per = 16 // t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
+            and all(s % per == 0 for s in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def wkv6_cuda(r, k, v, w, u, s0, row, chunk: int):
     """Launch the kernel on CUDA tensors. ``row`` is a (4,) int32 format row
     on the device (a view of a table row is fine) or ``None``; it rounds y
-    only. Returns new contiguous ``(y, sT)``, both float32."""
+    only. ``chunk`` is the tokens staged at a time; the kernel takes at
+    least 1, at most S and what its shared memory holds. No result depends
+    on it.
+    Returns new contiguous ``(y, sT)``, both float32."""
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
                     ("s0", s0)):
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
@@ -82,12 +97,7 @@ def wkv6_cuda(r, k, v, w, u, s0, row, chunk: int):
         raise ValueError("wkv6_cuda: row must be a contiguous (4,) int32 "
                          "tensor on the device of r")
     B, H, S, hd = r.shape
-    chunk = max(1, min(int(chunk), S))
-    if 16 * chunk * hd > _MAX_SMEM:
-        raise ValueError(f"wkv6: chunk {chunk} x head dim {hd} does not fit "
-                         "a block's shared memory")
-    r, k, v, w = (t if t.stride(-1) == 1 else t.contiguous()
-                  for t in (r, k, v, w))
+    r, k, v, w = (aligned(t) for t in (r, k, v, w))
     u = u.to(torch.float32).contiguous()
     s0 = s0.to(torch.float32).contiguous()
     y = torch.empty((B, H, S, hd), dtype=torch.float32, device=r.device)
@@ -100,8 +110,9 @@ def wkv6_cuda(r, k, v, w, u, s0, row, chunk: int):
             u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
             None if row is None else row.data_ptr(),
             *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *w.stride()[:3], B, H, S, hd, chunk, _DTYPE_CODE[r.dtype],
-            _DTYPE_CODE[w.dtype], torch.cuda.current_stream().cuda_stream)
+            *w.stride()[:3], B, H, S, hd, int(chunk), _DTYPE_CODE[r.dtype],
+            _DTYPE_CODE[w.dtype],
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkv6_cuda: launch refused, CUDA error {err}")
     wkv6_cuda.launches += 1

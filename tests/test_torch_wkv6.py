@@ -4,8 +4,9 @@ package's oracle and its Pallas kernel in interpret mode, and the fused
 quantize epilogue on ``y`` against the unfused op + ``quantize_dynamic``.
 
 The CUDA kernel itself has no CPU mode: ``chip_smoke.py`` holds it against
-the plain loop on the card. Inputs are made with numpy from a seed and
-handed to both packages."""
+the plain loop on the card. Its order of operations is emulated here
+(``kernel_order``) and held against the reference. Inputs are made with
+numpy from a seed and handed to both packages."""
 import functools
 
 import numpy as np
@@ -101,6 +102,87 @@ def test_chunk_invariance():
         assert np.abs(outs[0][0].numpy() - y_pal).max() < 1e-4
 
 
+def kernel_order(r, k, v, w, u, s0, R=4):
+    """f32 emulation of ``csrc/wkv6.cu``'s arithmetic: the hd / R lanes of a
+    column each hold R contiguous state rows; a lane's y partial starts at
+    v_j * (sum over its rows of (r_i u_i) k_i, an fma chain) and takes the
+    fma chain r_i S_ij over its rows in order; the lanes' partials are
+    summed in the kernel's shuffle tree (level l adds lanes g and g ^ 2^l,
+    the pairwise tree over the lanes in order). The state update is the
+    plain loop's. An fma is emulated in f64 and rounded once more to f32,
+    which can differ from one rounding in the last bit in rare cases."""
+    f32 = torch.float32
+    r, k, v, w, u, s = (t.to(f32) for t in (r, k, v, w, u, s0))
+    B, H, S, hd = r.shape
+    G = hd // R
+
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).to(f32)
+
+    ys = []
+    for t in range(S):
+        rt, kt, vt = (x[:, :, t].reshape(B, H, G, R) for x in (r, k, v))
+        ru = rt * u.reshape(H, G, R)
+        bp = torch.zeros(B, H, G, dtype=f32)
+        for i in range(R):
+            bp = fma(ru[..., i], kt[..., i], bp)
+        p = v[:, :, t, None, :] * bp[..., None]              # (B, H, G, hd)
+        s4 = s.reshape(B, H, G, R, hd)
+        for i in range(R):
+            p = fma(rt[..., i, None], s4[:, :, :, i], p)
+        while p.shape[2] > 1:
+            p = p[:, :, 0::2] + p[:, :, 1::2]
+        ys.append(p[:, :, 0])
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        s = w[:, :, t, :, None] * s + kv
+    return torch.stack(ys, dim=2), s
+
+
+@pytest.mark.parametrize("i", range(len(CASES)), ids=CASE_IDS)
+def test_kernel_order_matches_reference(i):
+    """The kernel's summation order (R = 4 rows a lane, the default tiling
+    at every head dim) against the reference's oracle and its Pallas kernel
+    in interpret mode at 1e-4; its state bit-equal to the port's loop."""
+    xs, (y_ref, s_ref, y_pal, s_pal) = case_data(i)
+    y, sT = kernel_order(*T(xs))
+    for a in (y_ref, y_pal):
+        assert np.abs(y.numpy() - a).max() < 1e-4
+    assert np.abs(sT.numpy() - s_ref).max() < 1e-4
+    assert torch.equal(sT, wkv6_ref(*T(xs))[1])
+
+
+def path_like_inputs(B, H, S, hd, seed):
+    """As ``chip_smoke.wkv_inputs`` makes them: r, k, v rounded to bf16,
+    w = exp(-exp(0.5 n - 0.5)), u and s0 at 0.1 n."""
+    g = np.random.RandomState(seed)
+    rkv = [torch.from_numpy(g.randn(B, H, S, hd).astype(np.float32))
+           .to(torch.bfloat16).to(torch.float32).numpy() for _ in range(3)]
+    w = np.exp(-np.exp(g.randn(B, H, S, hd) * 0.5 - 0.5)).astype(np.float32)
+    u = (g.randn(H, hd) * 0.1).astype(np.float32)
+    s0 = (g.randn(B, H, hd, hd) * 0.1).astype(np.float32)
+    return rkv + [w, u, s0]
+
+
+@functools.lru_cache(maxsize=None)
+def path_like_data():
+    xs = path_like_inputs(1, 4, 1024, 64, 11)
+    y_ref, s_ref = (np.asarray(a) for a in jax_wkv6_ref(
+        *[jnp.asarray(x) for x in xs]))
+    return xs, y_ref, s_ref
+
+
+def test_kernel_order_path_like():
+    """At a path-like shape (64 channels, 1024 tokens, the path's decays),
+    the kernel's order (R = 4 rows a lane) within 1e-4 * max|y| of the
+    reference's oracle; the state bit-equal to the port's plain loop."""
+    xs, y_ref, s_ref = path_like_data()
+    y, sT = kernel_order(*T(xs))
+    tol = 1e-4 * np.abs(y_ref).max()
+    assert np.abs(y.numpy() - y_ref).max() < tol
+    assert torch.equal(sT, wkv6_ref(*T(xs))[1])
+    assert np.abs(sT.numpy() - s_ref).max() < 1e-4 * np.abs(s_ref).max()
+
+
 def fused_args(seed=0):
     r = np.random.RandomState(seed)
     B, H, S, hd = 1, 2, 64, 16
@@ -178,3 +260,37 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(hd, w_dtype,
         wk.check_shapes(r, k, v, w, u[:1], s0)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         wk.wkv6_cuda(r, k, v, w, u, s0, None, 64)
+
+
+def _views(dtype):
+    """Tensors of shape (1, 2, 8, 16), named by how they lie in memory."""
+    x = torch.arange(1 * 8 * 2 * 16, dtype=torch.float32).to(dtype)
+    big = torch.zeros(1, 2, 8, 17, dtype=dtype)
+    big[..., 1:] = x.reshape(1, 2, 8, 16)
+    flat = torch.zeros(x.numel() + 1, dtype=dtype)
+    flat[1:] = x
+    return {
+        "heads-of-tokens": (x.reshape(1, 8, 2, 16).permute(0, 2, 1, 3), True),
+        "contiguous": (x.reshape(1, 2, 8, 16), True),
+        "odd-offset": (big[..., 1:], False),
+        "misaligned-base": (flat[1:].reshape(1, 2, 8, 16), False),
+        "last-axis-strided": (x.reshape(1, 2, 16, 8).transpose(-1, -2),
+                              False),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(_views(torch.float32)))
+def test_kernel_operand_alignment(name, dtype):
+    """The kernel reads r / k / v / w in 16-byte loads: a view it can read
+    (the path's (B, S, H, hd) tensors seen as (B, H, S, hd)) is passed as it
+    is, any other is copied contiguous, to an aligned base, values equal."""
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    t, as_is = _views(dtype)[name]
+    got = wk.aligned(t)
+    assert torch.equal(got, t)
+    assert (got.data_ptr() == t.data_ptr()) == as_is
+    per = 16 // got.element_size()
+    assert got.stride(-1) == 1 and got.data_ptr() % 16 == 0
+    assert all(s % per == 0 for s in got.stride()[:-1])
