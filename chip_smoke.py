@@ -6,23 +6,28 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's two paths:
+plain PyTorch version on the card, then drives the port's three paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
     tokens, random weights from a seed;
-  * the fused path — the same two entry points over the fused-epilogue
+  * the mem path — mem-mode (``memtrace``) of the same model and batch under
+    three policies, held bit for bit to op-mode, with the counters
+    (``profile_counts``); phase ``reconcile`` sets the speedup model's
+    prediction beside a measured f32 / bf16 ratio at depth 2;
+  * the fused path — the same entry points over the fused-epilogue
     kernels: the attention block of h2o-danube-1.8b's layer 0 (projections,
     flash attention with GQA and the 4096-token window, output projection)
     at 1 x 8192 tokens, and the WKV6 recurrence of rwkv6-7b (64 heads of
     64) at 1 x 4096 tokens, each with a matched site's format row routed
-    into the kernel's epilogue —
+    into the kernel's epilogue, and ``memtrace`` of the attention block —
 
 and times the kernels and the forward. Nothing is caught: any failed phase
 ends the run with a traceback and a non-zero exit code.
 
 Every phase prints one JSON line. The line before the last lists every
-kernel with its launches on the main path, its error against the plain
+kernel with its launches on the main path (and on each path that ran, in
+``launches_by_path``), its error against the plain
 version, its time, its bound, the plain version's time and the time of the
 one library call that computes the same function (where there is one). The
 last line is ``{"ok": true, "device": {...}}``.
@@ -31,7 +36,8 @@ Options (for debugging at a smaller size; the defaults are the full run):
 ``--layers N`` cuts the depth, ``--seq S`` the sequence length of the
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
-``kernels,fused_kernels,main_path,fused_path,small_ref,times`` or adds
+``kernels,fused_kernels,main_path,mem_path,fused_path,small_ref,times,
+reconcile`` or adds
 ``profile`` (device time by kernel name for one plain and one swept forward)
 or ``isa`` (registers and spills of every WKV6 kernel, from ``nvcc -Xptxas
 -v``); ``fused_times`` alone times the flash-attention and WKV6 kernels
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -106,6 +113,11 @@ def bit_mismatches(a: torch.Tensor, b: torch.Tensor) -> int:
         return int((a.view(torch.int32) != b.view(torch.int32)).sum())
     diff = a.view(torch.int16) != b.view(torch.int16)
     return int((diff & ~(a.isnan() & b.isnan())).sum())
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two f32 scalars (losses) with the same bit pattern."""
+    return bool(a.view(torch.int32) == b.view(torch.int32))
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -590,6 +602,28 @@ def phase_fused_kernels(device, seq, wkv_seq):
             "wkv6": wkv_path["y_err"]}
 
 
+def timed(fn, reps=3):
+    """Median wall time (ms) of ``reps`` calls, each between two device
+    synchronisations."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def sync_free(fn):
+    """``fn()`` with any host synchronisation on the card an error."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def make_batch(cfg, B, S, device, seed=0):
     r = np.random.RandomState(seed)
     toks = r.randint(0, cfg.vocab, (B, S + 1))
@@ -653,9 +687,6 @@ def phase_main_path(device, layers, seq):
     check(all(np.isfinite(v) for v in losses.values()), losses)
     check(plain.dtype == torch.float32 and plain.shape == (), plain.shape)
 
-    def same_bits(a, b):
-        return bool(a.view(torch.int32) == b.view(torch.int32))
-
     check(same_bits(swept[0], plain), "identity table changed the loss")
     check(same_bits(swept[-1], t_scoped),
           "scoped truncate differs from the same policy's table")
@@ -667,16 +698,6 @@ def phase_main_path(device, layers, seq):
           counts, handle.site_executions, tables_run)
     check(losses["table_e8m3"] != losses["plain"], "truncation had no effect")
 
-    def timed(fn, reps=3):
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out)
-
     times = {}
     with torch.no_grad():
         times["forward_plain_ms"] = timed(lambda: model.loss(params, batch))
@@ -687,6 +708,197 @@ def phase_main_path(device, layers, seq):
     del params
     torch.cuda.empty_cache()
     return counts, times
+
+
+def phase_mem_path(device, layers, seq):
+    """Mem-mode: ``memtrace(model.loss, ·)`` of the full-width model under
+    three policies, held to op-mode on the same inputs, and the counters."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import (TruncationPolicy, TruncationRule, memtrace,
+                                  parse_format, profile_counts, truncate,
+                                  truncate_sweep)
+    from repro_torch.core.memmode import NO_LOCATIONS
+    from repro_torch.kernels.quantize_em.ref import quantize_ref_fmt
+    from repro_torch.models import Model
+
+    cfg = get_config("h2o-danube-1.8b")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    batch = make_batch(cfg, 1, seq, device)
+    policies = {"scoped_e5m7": TruncationPolicy.scoped("layer/mlp", "e5m7"),
+                "everywhere_e8m7": TruncationPolicy.everywhere("e8m7"),
+                "everywhere_e8m3": TruncationPolicy.everywhere("e8m3")}
+    torch.cuda.synchronize()
+
+    def launches_of(fn):
+        before = kernels.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    # the shadow-lane check: layer/mlp rounded onto e5m7 and the logits
+    # product onto e8m3. At the logits site the truncated lane is op-mode's
+    # logits under the scoped policy, rounded, and the shadow lane is the
+    # plain forward's: its flags and max_rel, computed here in plain tensor
+    # code, must be what memtrace reports
+    shadow_policy = TruncationPolicy(rules=(
+        TruncationRule("e5m7", scope="layer/mlp"),
+        TruncationRule("e8m3", scope="logits", ops=("dot_general",))))
+    threshold = 1e-3                    # memtrace's default
+
+    info, losses, reports, wrappers = {}, {}, {}, {}
+    with torch.no_grad():
+        plain = model.loss(params, batch)
+        # op-mode under the same policies, and the swept e8m7 table
+        opmode = {n: launches_of(lambda: truncate(model.loss, p)(params,
+                                                                  batch))
+                  for n, p in policies.items()}
+        handle = truncate_sweep(model.loss, TruncationPolicy.everywhere(
+            "e5m2"))(params, batch)
+        table = handle.device_table(handle.table(policies["everywhere_e8m7"]))
+        torch.cuda.synchronize()
+        swept_e8m7 = sync_free(lambda: handle(table))
+        shadow_truncate_loss = truncate(model.loss, shadow_policy)(params,
+                                                                   batch)
+        sh = model.forward(params, batch)
+        low = quantize_ref_fmt(truncate(model.forward, policies[
+            "scoped_e5m7"])(params, batch), parse_format("e8m3"))
+        dev = ((low - sh).abs()
+               / torch.maximum(torch.maximum(sh.abs(), low.abs()),
+                               torch.tensor(1e-6, device=device)))
+        dev = torch.where(low == sh, 0.0, dev)
+        dev = torch.where(dev.isnan(), math.inf, dev)
+        want_logits = dict(flags=int((dev > threshold).sum()),
+                           max_rel=float(dev.amax()), op_counts=sh.numel())
+        del sh, low, dev
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        kernels.reset_launch_counts()           # the mem path starts here
+        walls = {}
+        for name, pol in policies.items():
+            mt = wrappers[name] = memtrace(model.loss, pol)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (losses[name], reports[name]), counts = launches_of(
+                lambda: sync_free(lambda: mt(params, batch)))
+            # the first call (the one that walks the policy) and two more
+            walls[name] = [(time.perf_counter() - t0) * 1e3]
+            walls[name] += [timed(lambda: sync_free(lambda: mt(params, batch)),
+                                  reps=1) for _ in range(2)]
+            rep = reports[name]
+            info[name] = dict(
+                loss=float(losses[name]),
+                truncate_loss=float(opmode[name][0]),
+                bit_equal_to_truncate=same_bits(losses[name],
+                                                opmode[name][0]),
+                launches=counts, truncate_launches=opmode[name][1],
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+                report_on_card=all(t.is_cuda for t in (
+                    rep.flags, rep.max_rel, rep.op_counts)),
+                n_locations=len(rep.locations))
+        info["everywhere_e8m7"]["bit_equal_to_table_e8m7"] = same_bits(
+            losses["everywhere_e8m7"], swept_e8m7)
+        shadow_loss, shadow_rep = sync_free(
+            lambda: memtrace(model.loss, shadow_policy)(params, batch))
+        empty = memtrace(model.loss, TruncationPolicy(()))
+        (loss0, rep0), counts0 = launches_of(
+            lambda: sync_free(lambda: empty(params, batch)))
+        torch.cuda.synchronize()
+        path_counts = kernels.launch_counts()   # ... and ends here
+
+        # the counters: one untruncated run, no quantizer
+        counter = profile_counts(model.loss, policies["scoped_e5m7"])
+        counted, count_launches = launches_of(lambda: counter(params, batch))
+        counter(params, batch)
+
+        times = {"forward_plain_ms": timed(lambda: model.loss(params, batch))}
+        for name, w in walls.items():
+            times[f"memtrace_{name}_ms"] = statistics.median(w)
+            times[f"overhead_{name}"] = (times[f"memtrace_{name}_ms"]
+                                         / times["forward_plain_ms"])
+
+    # ---- the reports -------------------------------------------------------
+    for name, rep in reports.items():
+        flags, max_rel = rep.flags.cpu(), rep.max_rel.cpu()
+        counts = rep.op_counts.cpu()
+        info[name].update(
+            total_flags=int(flags.sum()), total_op_counts=int(counts.sum()),
+            max_op_counts=int(counts.max()),
+            max_op_counts_location=rep.locations[int(counts.argmax())],
+            max_rel_bounded=bool(((max_rel <= 2) | max_rel.isinf()).all()),
+            n_traces=wrappers[name].n_traces,
+            top10=[[loc, f, m] for loc, f, m in rep.top(10)])
+    # op_counts by hand for the scoped policy: its five MLP sites in program
+    # order (the gate/up product, sigmoid, x * sigmoid, silu * up, the down
+    # product), each on every layer
+    scoped = reports["scoped_e5m7"]
+    n = seq * cfg.d_ff
+    want_counts = [e * cfg.n_layers for e in (2 * n, n, n, n,
+                                              seq * cfg.d_model)]
+    info["scoped_e5m7"]["op_counts"] = scoped.op_counts.tolist()
+    info["scoped_e5m7"]["op_counts_by_hand"] = want_counts
+    e7, e3 = reports["everywhere_e8m7"], reports["everywhere_e8m3"]
+    at = [i for i, loc in enumerate(shadow_rep.locations)
+          if loc.startswith("logits dot_general @ ")]
+    shadow_check = dict(
+        want=want_logits, locations=len(shadow_rep.locations),
+        logits_location=[shadow_rep.locations[i] for i in at],
+        got=dict(flags=int(shadow_rep.flags[at[0]]),
+                 max_rel=float(shadow_rep.max_rel[at[0]]),
+                 op_counts=int(shadow_rep.op_counts[at[0]])) if at else None,
+        loss_bit_equal_to_truncate=same_bits(shadow_loss,
+                                             shadow_truncate_loss))
+    counts_report = dict(
+        total_gflop=counted.total_flops / 1e9,
+        total_gb=sum(counted.bytes_by_fmt.values()) / 1e9,
+        gflop_by_fmt={k: v / 1e9 for k, v in counted.flops_by_fmt.items()},
+        truncated_fraction=counted.truncated_fraction,
+        n_traces=counter.n_traces, launches=count_launches)
+    emit("mem_path", model=cfg.name, n_layers=cfg.n_layers, batch=[1, seq],
+         dtype=cfg.dtype, policies=info, plain_loss=float(plain),
+         empty_policy=dict(loss=float(loss0), locations=list(rep0.locations),
+                           flags=rep0.flags.tolist(), launches=counts0),
+         shadow_check=shadow_check, profile_counts=counts_report,
+         launches=path_counts, **times)
+
+    for name, i in info.items():
+        check(i["bit_equal_to_truncate"], name, "memtrace != truncate", i)
+        check(i["launches"]["quantize_em_static"]
+              == i["truncate_launches"]["quantize_em_static"], name, i)
+        check(i["launches"]["quantize_em_dynamic"] == 0, name, i)
+        check(i["report_on_card"] and i["max_rel_bounded"], name, i)
+        check(i["n_traces"] == 1, name, "n_traces", i)
+        check(np.isfinite(i["loss"]), name, i)
+    check(info["everywhere_e8m7"]["bit_equal_to_table_e8m7"],
+          "memtrace e8m7 != the swept e8m7 table")
+    check(info["scoped_e5m7"]["launches"]["quantize_em_static"]
+          == 5 * cfg.n_layers, info["scoped_e5m7"])
+    check(info["scoped_e5m7"]["op_counts"] == want_counts,
+          info["scoped_e5m7"])
+    check(info["everywhere_e8m3"]["total_flags"]
+          > info["everywhere_e8m7"]["total_flags"], "e8m3 flags <= e8m7")
+    check(e7.locations == e3.locations
+          and torch.equal(e7.op_counts, e3.op_counts), "e8m7 vs e8m3 sites")
+    if layers is None and seq == 8192:
+        check(info["everywhere_e8m3"]["max_op_counts"] > 2**31,
+              "no location passed 2^31 elements", info["everywhere_e8m3"])
+    check(same_bits(loss0, plain) and rep0.locations == (NO_LOCATIONS,)
+          and rep0.flags.tolist() == [0], "empty policy", rep0)
+    check(counter.n_traces == 1 and sum(count_launches.values()) == 0,
+          counts_report)
+    check(len(at) == 1 and shadow_check["got"] == want_logits
+          and shadow_check["loss_bit_equal_to_truncate"],
+          "the logits location differs from the plain computation",
+          shadow_check)
+    check(path_counts["quantize_em_static"] > 0
+          and path_counts["quantize_em_dynamic"] == 0, path_counts)
+    return path_counts
 
 
 def drive_fused(name, program, args, scoped, kernel, routed):
@@ -724,16 +936,6 @@ def drive_fused(name, program, args, scoped, kernel, routed):
     def same(a, b):
         return all(bit_mismatches(x, y) == 0 for x, y in zip(a, b))
 
-    def timed(fn, reps=3):
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out)
-
     with torch.no_grad():
         times = {"plain_ms": timed(lambda: program(*args)),
                  "truncate_scoped_ms": timed(lambda: lossy(*args)),
@@ -754,6 +956,58 @@ def drive_fused(name, program, args, scoped, kernel, routed):
     check(counts["quantize_em_dynamic"] == per_run * len(tables), name,
           "a routed output took a separate quantize pass", info)
     return plain, t_scoped, info, counts
+
+
+def mem_over_fused(program, args, unrouted_args):
+    """``memtrace`` of a fused program: the walk never routes a row into
+    the kernel's epilogue, so the kernel runs on both lanes and its output
+    takes a separate quantize pass. ``unrouted_args`` wires no row (the
+    program's ``truncate`` then cannot route either)."""
+    from repro_torch import kernels
+    from repro_torch.core import TruncationPolicy, memtrace, truncate
+    from repro_torch.core import truncate_sweep
+
+    out = {}
+    with torch.no_grad():
+        executions = truncate_sweep(program, TruncationPolicy.everywhere(
+            "e5m2"))(*args).site_executions
+        for fmt in ("e8m7", "e8m3"):
+            pol = TruncationPolicy.everywhere(fmt)
+            mt = memtrace(program, pol)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            (low, rep) = sync_free(lambda: mt(*args))
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            unrouted = truncate(program, pol)(*unrouted_args)
+            routed = truncate(program, pol)(*args)
+            fused = [i for i, l in enumerate(rep.locations)
+                     if " pallas_call @ " in l]
+            out[fmt] = dict(
+                launches=counts, site_executions=executions,
+                fused_location=[rep.locations[i] for i in fused],
+                fused_op_counts=[int(rep.op_counts[i]) for i in fused],
+                out_elements=low[1].numel(),
+                vs_unrouted_mismatches=sum(bit_mismatches(a, b) for a, b in
+                                           zip(low, unrouted)),
+                vs_routed_mismatches=sum(bit_mismatches(a, b) for a, b in
+                                         zip(low, routed)),
+                total_flags=int(rep.flags.sum()),
+                memtrace_ms=timed(lambda: sync_free(lambda: mt(*args))))
+        out["plain_ms"] = timed(lambda: program(*args))
+    emit("fused_mem", program="attention", **out)
+    for fmt in ("e8m7", "e8m3"):
+        o = out[fmt]
+        check(o["launches"]["flash_attention"] == 2, "the kernel runs on "
+              "both lanes: 2 launches a call", o)
+        check(o["launches"]["quantize_em_dynamic"] == 0, o)
+        check(o["vs_unrouted_mismatches"] == 0
+              and o["vs_routed_mismatches"] == 0, fmt, o)
+        check(o["fused_op_counts"] == [o["out_elements"]], fmt, o)
+    # e8m3 rounds every float result (no identity, no convert pair): one
+    # static pass per site execution, the kernel's output among them
+    check(out["e8m3"]["launches"]["quantize_em_static"]
+          == out["e8m3"]["site_executions"], out["e8m3"])
 
 
 def phase_fused_path(device, seq, wkv_seq):
@@ -811,6 +1065,8 @@ def phase_fused_path(device, seq, wkv_seq):
     check(info["finite"] and info["out_shape"] == [1, seq, cfg.d_model], info)
     check(info["fused_sites"] == ["mix"], info["fused_sites"])
     check(c["quantize_em_static"] == 0, c)
+    mem_over_fused(attn_program, (p, x, positions, ident),
+                   (p, x, positions, None))
     del p, x, q, k, v, unfused, want, plain, routed
     torch.cuda.empty_cache()
 
@@ -842,6 +1098,53 @@ def phase_fused_path(device, seq, wkv_seq):
     check(c["quantize_em_static"] == 1, c)
     torch.cuda.empty_cache()
     return counts
+
+
+def phase_reconcile(device, seq, layers=2):
+    """The speedup model against the card: ``estimate_speedup`` of
+    h2o-danube-1.8b at full width, cut to ``layers`` layers, against the
+    f32 baseline, beside the measured time of the plain forward in f32 over
+    that in bf16. Two counts: every op at the bf16 rate (the f32 model
+    under ``everywhere("e8m7")``), and the program that runs in the bf16
+    configuration (the bf16 model, its ops with bf16 results at the bf16
+    rate, the rest, such as the f32 attention and logits, at the f32 rate)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import TruncationPolicy, profile_counts
+    from repro_torch.core.speedup import estimate_speedup, reconcile
+    from repro_torch.models import Model
+
+    base = get_config("h2o-danube-1.8b").replace(n_layers=layers)
+    batch = make_batch(base, 1, seq, device)
+    policy = {"float32": TruncationPolicy.everywhere("e8m7"),
+              "bfloat16": TruncationPolicy.everywhere("e8m7", from_width=16)}
+    ms, counts = {}, {}
+    with torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            model = Model(base.replace(dtype=dtype))
+            params = model.init(seed=0)
+            ms[dtype] = timed(lambda: model.loss(params, batch))
+            counts[dtype] = profile_counts(model.loss, policy[dtype])(params,
+                                                                      batch)
+            del params
+            torch.cuda.empty_cache()
+    measured = ms["float32"] / ms["bfloat16"]
+    models = {}
+    for dtype, what in (("float32", "every_op_bf16"),
+                        ("bfloat16", "bf16_results_only")):
+        c = counts[dtype]
+        est = estimate_speedup(c, baseline_fmt="fp32")
+        r = reconcile(measured, est.predicted)
+        models[what] = dict(
+            gflop=c.total_flops / 1e9, gb=sum(c.bytes_by_fmt.values()) / 1e9,
+            truncated_fraction=c.truncated_fraction,
+            compute_bound=est.compute_bound, memory_bound=est.memory_bound,
+            operational_intensity=est.operational_intensity, bound=est.bound,
+            modeled=r.modeled, gap=r.gap)
+    emit("reconcile", model=base.name, n_layers=layers, batch=[1, seq],
+         baseline="fp32", forward_f32_ms=ms["float32"],
+         forward_bf16_ms=ms["bfloat16"], measured=measured, **models)
+    check(np.isfinite(measured)
+          and all(np.isfinite(m["modeled"]) for m in models.values()), models)
 
 
 def phase_small_ref(device):
@@ -1043,11 +1346,12 @@ def phase_fused_times(device, seq, wkv_seq):
 
 def phase_profile(device, layers, seq):
     """Where a forward's time goes: device time by kernel name for the plain
-    forward and for one swept forward (every float result a site, e8m7
-    table). Not part of the default run: ``--phases profile``."""
+    forward, one swept forward (every float result a site, e8m7 table) and
+    one ``memtrace`` forward under the same policy. Not part of the default
+    run: ``--phases profile``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
-    from repro_torch.core import TruncationPolicy, truncate_sweep
+    from repro_torch.core import TruncationPolicy, memtrace, truncate_sweep
     from repro_torch.models import Model
 
     cfg = get_config("h2o-danube-1.8b")
@@ -1060,17 +1364,18 @@ def phase_profile(device, layers, seq):
     with torch.no_grad():
         handle = truncate_sweep(model.loss, everywhere)(params, batch)
         table = handle.device_table(handle.table(everywhere))
+        traced = memtrace(model.loss, everywhere)
         runs = {"plain": lambda: model.loss(params, batch),
-                "sweep_e8m7": lambda: handle(table)}
+                "sweep_e8m7": lambda: handle(table),
+                "memtrace_e8m7": lambda: traced(params, batch)}
         for name, fn in runs.items():
-            fn()
-            torch.cuda.synchronize()
+            wall_ms = timed(fn, reps=1)       # the first call, unprofiled
             t0 = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            profiled_ms = (time.perf_counter() - t0) * 1e3
             # device-side events only: host-side op events carry their
             # kernels' time a second time
             rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1079,7 +1384,8 @@ def phase_profile(device, layers, seq):
             rows.sort(key=lambda r: -r[1])
             busy = sum(r[1] for r in rows)
             emit("profile", run=name, n_layers=cfg.n_layers,
-                 wall_ms_under_profiler=wall_ms, device_busy_ms=busy,
+                 wall_ms=wall_ms, wall_ms_under_profiler=profiled_ms,
+                 device_busy_ms=busy,
                  n_device_kernels=sum(r[2] for r in rows),
                  top=[dict(kernel=k[:80], ms=round(ms, 2), calls=c)
                       for k, ms, c in rows[:14]])
@@ -1125,7 +1431,8 @@ def main():
     ap.add_argument("--seq", type=int, default=8192)
     ap.add_argument("--wkv-seq", type=int, default=4096)
     ap.add_argument("--phases", default="kernels,fused_kernels,main_path,"
-                                        "fused_path,small_ref,times")
+                                        "mem_path,fused_path,small_ref,times,"
+                                        "reconcile")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1148,15 +1455,23 @@ def main():
     if "fused_kernels" in phases:
         errs.update(phase_fused_kernels(device, args.seq, args.wkv_seq))
     counts = dict.fromkeys(REPLACES, 0)
+    by_path = {}                  # launches of each path's own run
     forward_times = {}
     if "main_path" in phases:
         c, forward_times = phase_main_path(device, args.layers, args.seq)
         counts.update({k: c[k] for k in ("quantize_em_static",
                                          "quantize_em_dynamic")})
+        by_path["main_path"] = c
+    if "mem_path" in phases:
+        by_path["mem_path"] = phase_mem_path(device, args.layers, args.seq)
     if "fused_path" in phases:
-        counts.update(phase_fused_path(device, args.seq, args.wkv_seq))
+        by_path["fused_path"] = phase_fused_path(device, args.seq,
+                                                 args.wkv_seq)
+        counts.update(by_path["fused_path"])
     if "small_ref" in phases:
         phase_small_ref(device)
+    if "reconcile" in phases:
+        phase_reconcile(device, args.seq)
     rows = []
     if "times" in phases:
         rows = phase_times(device, args.seq)
@@ -1193,7 +1508,9 @@ def main():
         err = errs[name] if errs[name] is not None else r.get("max_abs_err")
         summary.append(dict(
             name=name, route="cuda", source=sources[name],
-            replaces=REPLACES[name], launches=counts[name], max_abs_err=err,
+            replaces=REPLACES[name], launches=counts[name],
+            launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
+            max_abs_err=err,
             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms"), shape=r.get("shape"),
@@ -1203,10 +1520,11 @@ def main():
     print(json.dumps({"kernels": summary}), flush=True)
     # every kernel of each path that ran was launched on it
     path_kernels = {"main_path": ("quantize_em_static", "quantize_em_dynamic"),
+                    "mem_path": ("quantize_em_static",),
                     "fused_path": ("flash_attention", "wkv6")}
     for path, names in path_kernels.items():
         if path in phases:
-            check(all(counts[n] > 0 for n in names), path, summary)
+            check(all(by_path[path][n] > 0 for n in names), path, summary)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

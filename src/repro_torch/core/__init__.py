@@ -1,8 +1,7 @@
 # The paper's primary contribution: transparent, scoped, arbitrary-precision
 # numerical profiling (RAPTOR, SC'25), here for PyTorch programs on CUDA.
 # Same names as the reference package's ``repro.core``; what is not ported
-# yet (memtrace, profile_counts, profile_trajectory, the reports, the
-# speedup model) is absent rather than stubbed.
+# yet (profile_trajectory, TrajectoryReport) is absent rather than stubbed.
 from repro_torch.core.formats import (
     FPFormat, parse_format, FP64, FP32, TF32, BF16, FP16, E5M2, E4M3, E4M3FN,
 )
@@ -11,7 +10,13 @@ from repro_torch.core.policy import (
     parse_policy, resolve_policy, ResolvedPolicy, NotSerializableError,
 )
 from repro_torch.core.api import (
-    truncate, truncate_sweep, SweepHandle, scope, loop_body,
+    truncate, truncate_sweep, SweepHandle, memtrace, profile_counts, scope,
+    loop_body,
+)
+from repro_torch.core.counters import CountReport
+from repro_torch.core.memmode import RaptorReport
+from repro_torch.core.speedup import (
+    estimate_speedup, fpu_area_model, SpeedupEstimate,
 )
 
 __all__ = [
@@ -20,5 +25,8 @@ __all__ = [
     "TruncationPolicy", "TruncationRule", "magnitude_below", "magnitude_above",
     "parse_policy", "resolve_policy", "ResolvedPolicy",
     "NotSerializableError",
-    "truncate", "truncate_sweep", "SweepHandle", "scope", "loop_body",
+    "truncate", "truncate_sweep", "SweepHandle", "memtrace",
+    "profile_counts", "scope", "loop_body",
+    "CountReport", "RaptorReport",
+    "estimate_speedup", "fpu_area_model", "SpeedupEstimate",
 ]

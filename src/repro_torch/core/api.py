@@ -18,21 +18,32 @@ the device. One enumeration per input signature serves every candidate
 policy — a new policy is a new table value, never a new enumeration and
 never a kernel build.
 
+Mem-mode and the counters:
+
+    out, report = raptor.memtrace(model.loss, policy)(params, batch)
+    print(report.summary())                 # per-location flag heatmap
+    counts = raptor.profile_counts(model.loss, policy)(params, batch)
+
+``memtrace`` runs the program on a truncated and a full-precision lane and
+returns the truncated outputs with a :class:`RaptorReport`;
+``profile_counts`` runs it once, untruncated, and returns a
+:class:`CountReport`. Both cache per input signature like ``truncate``.
+
 ``mesh`` / ``in_shardings`` are accepted for signature parity with the
 reference package and must be ``None``: distribution is not ported yet.
-``memtrace``, ``profile_trajectory`` and ``profile_counts`` are not ported
-yet either.
+``profile_trajectory`` is not ported yet either.
 """
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import Callable
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core import interpreter
+from repro_torch.core import counters, interpreter, memmode
 from repro_torch.core.formats import FPFormat, parse_format  # re-export
 from repro_torch.core.interpreter import scope, loop_body  # re-export
 from repro_torch.core.policy import (  # re-export
@@ -64,6 +75,24 @@ def _no_mesh(mesh, in_shardings):
             "mesh= / in_shardings= are not ported yet; pass None")
 
 
+def _per_signature(wrapped, cache: bool, suffix: tuple, args, kwargs, make):
+    """What a transform keeps for one input signature: ``make()`` on the
+    first call of the signature (counted in ``wrapped.n_traces``), the
+    cached value after."""
+    key = None
+    if cache:
+        leaves, in_tree = pytree.tree_flatten((args, kwargs))
+        key = _signature_key(in_tree, leaves, suffix)
+        hit = wrapped._cache.get(key)
+        if hit is not None:
+            return hit
+    wrapped.n_traces += 1
+    value = make()
+    if cache:
+        wrapped._cache[key] = value
+    return value
+
+
 def _attach_cache(wrapped):
     wrapped._cache = {}
     wrapped.n_traces = 0          # times the policy was matched to a program
@@ -93,16 +122,7 @@ def truncate(fn: Callable, policy: TruncationPolicy, *, impl: str = "auto",
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        plan = None
-        if cache:
-            leaves, in_tree = pytree.tree_flatten((args, kwargs))
-            key = _signature_key(in_tree, leaves, suffix)
-            plan = wrapped._cache.get(key)
-        if plan is None:
-            wrapped.n_traces += 1
-            plan = {}
-            if cache:
-                wrapped._cache[key] = plan
+        plan = _per_signature(wrapped, cache, suffix, args, kwargs, dict)
         return interpreter.run_quantized(fn, args, kwargs, policy, impl, plan)
 
     return _attach_cache(wrapped)
@@ -211,5 +231,68 @@ def truncate_sweep(fn: Callable, site_policy: TruncationPolicy, *,
                 wrapped._cache[key] = index
         return SweepHandle(fn, index, args, kwargs, impl,
                            _first_device(leaves, device))
+
+    return _attach_cache(wrapped)
+
+
+def _legacy_threshold_shim(name: str, legacy, threshold: float) -> float:
+    """One deprecation cycle for the historical positional ``threshold``:
+    ``memtrace(fn, policy, 1e-4)`` keeps working but warns; the canonical
+    spelling is keyword-only (``threshold=1e-4``)."""
+    if legacy is None:
+        return threshold
+    warnings.warn(
+        f"{name}(fn, policy, threshold) with a positional threshold is "
+        f"deprecated; pass threshold= as a keyword",
+        DeprecationWarning, stacklevel=3)
+    return float(legacy)
+
+
+def memtrace(fn: Callable, policy: TruncationPolicy, _threshold=None,
+             *, threshold: float = 1e-3, impl: str = "auto",
+             cache: bool = True, mesh=None, in_shardings=None) -> Callable:
+    """mem-mode: returns a wrapper whose call gives ``(outputs,
+    RaptorReport)``. The outputs are the truncated lane's (bit for bit what
+    ``truncate`` gives under a policy without dot-input rules); the report
+    carries, per source location, the elements whose deviation from the
+    full-precision shadow lane exceeds ``threshold``, the largest deviation
+    and the elements seen, on the program's device.
+
+    Per input signature the policy is matched once and the location table
+    kept (``wrapper.n_traces``). ``mesh`` / ``in_shardings`` must be
+    ``None`` (distribution is not ported yet)."""
+    threshold = _legacy_threshold_shim("memtrace", _threshold, threshold)
+    _no_mesh(mesh, in_shardings)
+    suffix = ("memtrace", policy.cache_key(), threshold, impl)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        table = _per_signature(wrapped, cache, suffix, args, kwargs,
+                               memmode.LocationTable)
+        return memmode.run_shadowed(fn, args, kwargs, policy, threshold,
+                                    impl, table)
+
+    return _attach_cache(wrapped)
+
+
+def profile_counts(fn: Callable, policy: TruncationPolicy, *,
+                   cache: bool = True, mesh=None,
+                   in_shardings=None) -> Callable:
+    """Operation and byte counting (the paper's runtime counters): returns a
+    wrapper whose call runs ``fn`` once, untruncated, and gives a
+    :class:`CountReport` of truncated vs full-precision FLOPs and bytes per
+    format and scope. Cached per input signature: a repeated call returns
+    the cached report without running (``wrapper.n_traces`` counts runs).
+    The count is of what ran, so a program whose work depends on values
+    the signature does not hold (a loop bounded by a Python int, a branch
+    on data) is counted as its first call ran; ``cache=False`` counts every
+    call. ``mesh`` / ``in_shardings`` must be ``None``."""
+    _no_mesh(mesh, in_shardings)
+    suffix = ("counts", policy.cache_key())
+
+    def wrapped(*args, **kwargs):
+        return _per_signature(
+            wrapped, cache, suffix, args, kwargs,
+            lambda: counters.count_ops(fn, args, kwargs, policy))
 
     return _attach_cache(wrapped)

@@ -132,7 +132,7 @@ ATEN_TO_PRIM: Dict[str, str] = _table({
     "conv_general_dilated": "convolution",
     "add": "add logsumexp",
     "sub": "sub rsub _log_softmax",
-    "mul": "mul silu gelu",
+    "mul": "mul silu gelu native_dropout",
     "div": "div true_divide reciprocal _softmax",
     "rem": "remainder fmod",
     "pow": "pow",
@@ -157,6 +157,9 @@ ATEN_TO_PRIM: Dict[str, str] = _table({
     "cumsum": "cumsum",
     "scatter": "scatter scatter_add index_put index_add",
     "convert_element_type": "_to_copy",
+    # random draws (the reference's are ``random_bits`` and bit arithmetic)
+    "random_bits": ("rand rand_like randn randn_like randint randint_like "
+                    "normal uniform bernoulli multinomial randperm"),
     # ---- structural: never produce a new floating-point value -------------
     "reshape": "view _unsafe_view reshape _reshape_alias flatten unflatten",
     "transpose": "permute transpose t",
@@ -346,7 +349,8 @@ class _WalkMode(TorchDispatchMode):
     Inside ``__torch_dispatch__`` the mode is off, so the quantizer's own
     tensor ops (and a fused kernel's plain version) are not intercepted
     again. ``on_inputs`` may route a site's row into a fused op; the outputs
-    it names as routed skip ``on_output``."""
+    it names as routed skip ``on_output``. ``run`` runs the op (mem-mode
+    runs it on a second lane too)."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         frame = _frames()[-1]
@@ -356,7 +360,7 @@ class _WalkMode(TorchDispatchMode):
         kwargs = kwargs or {}
         args, kwargs, routed = self.on_inputs(frame, pos, prim, func, args,
                                               kwargs)
-        out = func(*args, **kwargs)
+        out = self.run(func, args, kwargs, mutates)
         if isinstance(out, torch.Tensor):
             if 0 in routed:
                 return out
@@ -383,6 +387,9 @@ class _WalkMode(TorchDispatchMode):
     def on_inputs(self, frame, pos, prim, func, args, kwargs):
         """Returns ``(args, kwargs, routed output indices)``."""
         return args, kwargs, ()
+
+    def run(self, func, args, kwargs, mutates):
+        return func(*args, **kwargs)
 
     def on_output(self, frame, pos, out_idx, prim, val):
         return val

@@ -31,6 +31,8 @@ def run_python(code: str, cwd=ROOT):
 def test_every_module_is_found():
     mods = port_modules()
     for want in ("repro_torch.core.api", "repro_torch.core.interpreter",
+                 "repro_torch.core.memmode", "repro_torch.core.counters",
+                 "repro_torch.core.speedup",
                  "repro_torch.core.policy", "repro_torch.core.formats",
                  "repro_torch.kernels._build",
                  "repro_torch.kernels.quantize_em.kernel",
