@@ -6,7 +6,7 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's three paths:
+plain PyTorch version on the card, then drives the port's five paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
@@ -20,7 +20,15 @@ plain PyTorch version on the card, then drives the port's three paths:
     flash attention with GQA and the 4096-token window, output projection)
     at 1 x 8192 tokens, and the WKV6 recurrence of rwkv6-7b (64 heads of
     64) at 1 x 4096 tokens, each with a matched site's format row routed
-    into the kernel's epilogue, and ``memtrace`` of the attention block —
+    into the kernel's epilogue, and ``memtrace`` of the attention block;
+  * the search path — ``autosearch`` of the same model's loss at full width,
+    depth cut to 4 layers, every candidate a swept
+    forward through the dynamic quantizer, held to a hand count of launches
+    and to ``truncate`` of the searched policy;
+  * the apps path — the Sod, heat and Poisson mini-apps at their default
+    sizes: ``autosearch`` against each app's FP64 oracle and budget, the
+    uniform-low strawman, a swept ladder against ``truncate``, and the same
+    search on the CPU (``device="cpu"``) with the same assignments —
 
 and times the kernels and the forward. Nothing is caught: any failed phase
 ends the run with a traceback and a non-zero exit code.
@@ -33,11 +41,12 @@ one library call that computes the same function (where there is one). The
 last line is ``{"ok": true, "device": {...}}``.
 
 Options (for debugging at a smaller size; the defaults are the full run):
-``--layers N`` cuts the depth, ``--seq S`` the sequence length of the
+``--layers N`` cuts the depth (the search path's is 4 unless given),
+``--seq S`` the sequence length of the
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,mem_path,fused_path,small_ref,times,
-reconcile`` or adds
+reconcile,search_path,apps_path`` or adds
 ``profile`` (device time by kernel name for one plain and one swept forward)
 or ``isa`` (registers and spills of every WKV6 kernel, from ``nvcc -Xptxas
 -v``); ``fused_times`` alone times the flash-attention and WKV6 kernels
@@ -1181,6 +1190,220 @@ def phase_small_ref(device):
     emit("small_ref", model=cfg.name + "/smoke", losses=out)
 
 
+def recorded(fn):
+    """``fn`` that notes, for every call, the wall clock and the sync debug
+    mode it ran under (2 = any host synchronisation is an error)."""
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        calls.append((time.perf_counter(), torch.cuda.get_sync_debug_mode()))
+        return fn(*args, **kwargs)
+
+    wrapped.calls = calls
+    return wrapped
+
+
+def check_search_runs(res, calls, what):
+    """The program ran once to discover scopes, once to enumerate sites, then
+    once per evaluated row (the reference row and each candidate: identity
+    padding never runs), every row with host synchronisation an error."""
+    runs = res.evals_used + 1 if res.n_dispatches else 0
+    check(len(calls) == 2 + runs, what, "program runs", len(calls), runs)
+    check(all(m == 0 for _, m in calls[:2])
+          and all(m == 2 for _, m in calls[2:]), what, "sync debug modes",
+          sorted({m for _, m in calls}))
+
+
+def search_site_policy(res):
+    from repro_torch.core import FPFormat, TruncationPolicy, TruncationRule
+    return TruncationPolicy(rules=tuple(
+        TruncationRule(fmt=FPFormat(res.exp_bits, 0), scope=p)
+        for p in res.assignments))
+
+
+SEARCH_LAYERS = 4       # sites under scope("layer") are one set at any depth
+SEARCH_BUDGET = 128     # non-binding at this frontier
+SEARCH_THRESHOLD = 5e-3
+
+
+def phase_search_path(device, layers, seq):
+    """``autosearch(model.loss, (params, batch), loss_degradation,
+    budget=128, threshold=5e-3)`` of h2o-danube-1.8b at full width, depth
+    cut to ``layers``: every candidate is a swept forward through the
+    dynamic quantizer. Held to the hand count of launches, to ``truncate``
+    of the searched policy (bit for bit) and to a search with no host
+    synchronisation inside a candidate."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import truncate, truncate_sweep
+    from repro_torch.models import Model
+    from repro_torch.search import autosearch, loss_degradation
+
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=layers)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    batch = make_batch(cfg, 1, seq, device)
+    loss = recorded(model.loss)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()               # the search path starts here
+    t0 = time.perf_counter()
+    res = autosearch(loss, (params, batch), loss_degradation, SEARCH_BUDGET,
+                     threshold=SEARCH_THRESHOLD)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    during = kernels.launch_counts()
+    with torch.no_grad():
+        plain = model.loss(params, batch)
+        lossy = truncate(model.loss, res.policy())(params, batch)
+        sweep = truncate_sweep(model.loss, search_site_policy(res))
+        handle = sweep(params, batch)
+        swept = handle(handle.table(res.policy()))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()            # ... and ends here
+
+    check_search_runs(res, loss.calls, "search_path")
+    rows = res.evals_used + 1
+    first_row = loss.calls[2][0]
+    frontier = [(a.scope.path, a.scope.fraction)
+                for a in res.assignments.values()]
+    again = loss_degradation(plain.cpu().numpy(), lossy.cpu().numpy())
+    emit("search_path", model=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=cfg.dtype,
+         batch=[1, seq], budget=SEARCH_BUDGET, threshold=SEARCH_THRESHOLD,
+         frontier=frontier, num_sites=res.n_sites,
+         site_executions=handle.site_executions,
+         evals_used=res.evals_used, n_dispatches=res.n_dispatches,
+         probe_batch=res.probe_batch,
+         max_dispatch_rows=res.max_dispatch_rows, converged=res.converged,
+         final_error=res.final_error, n_traces=res.n_traces,
+         n_compiles=res.n_compiles,
+         assignments={p: [a.man_bits, a.excluded]
+                      for p, a in res.assignments.items()},
+         wall_s=t1 - t0, discovery_s=loss.calls[1][0] - loss.calls[0][0],
+         enumeration_s=first_row - loss.calls[1][0],
+         s_per_candidate=(t1 - first_row) / rows,
+         loss_plain=float(plain), loss_searched=float(lossy),
+         launches_during_search=during, launches=counts,
+         peak_memory_gb=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    print(res.table(), flush=True)
+
+    check(res.n_traces == 1 and res.n_compiles == 1, res.n_traces,
+          res.n_compiles)
+    check(res.evals_used <= SEARCH_BUDGET, res.evals_used)
+    check(res.converged, res.table())
+    check(handle.num_sites == res.n_sites, handle.num_sites, res.n_sites)
+    check(during["quantize_em_dynamic"] == rows * handle.site_executions,
+          "launches vs hand count", during, rows, handle.site_executions)
+    check(during["quantize_em_static"] == 0, during)
+    check(same_bits(lossy, swept), "truncate vs swept table of the policy",
+          float(lossy), float(swept))
+    check(again == res.final_error, "metric of truncate vs final_error",
+          again, res.final_error)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+APP_BUDGET = 32
+APP_LADDER = (10, 5, 3)
+
+
+def phase_apps_path(device):
+    """Sod, heat and Poisson at the reference's default sizes, the contract
+    of its ``tests/conformance/test_apps_e2e.py`` on the card: the search
+    converges within budget with one table signature, the searched policy
+    meets the FP64-oracle budget with the f32 floor at most a tenth of it,
+    uniform ``uniform_low`` busts the budget and the mixed policy beats it,
+    and ``truncate_sweep`` of a ladder is bit-equal to per-policy
+    ``truncate``. The same search on the CPU gives the same assignments."""
+    from repro_torch import kernels
+    from repro_torch.apps import APPS, get_app, oracle
+    from repro_torch.core import truncate, truncate_sweep
+    from repro_torch.search import autosearch
+
+    kernels.reset_launch_counts()               # the apps path starts here
+    out, cpu_runs = {}, {}
+    for name in sorted(APPS):
+        app = get_app(name)
+        state = app.init_state()                # on the card by default
+        check(all(t.is_cuda for t in
+                  (state if isinstance(state, tuple) else (state,))),
+              name, "init_state() must default to the card")
+        ref64 = oracle.fp64_reference(app)
+        fn = recorded(app.run_observables)
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        res = autosearch(fn, (state,), metric=app.error_metric,
+                         budget=APP_BUDGET, threshold=app.search_threshold)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after = kernels.launch_counts()
+        check_search_runs(res, fn.calls, name)
+        with torch.no_grad():
+            handle = truncate_sweep(app.run_observables,
+                                    search_site_policy(res))(state)
+            mixed = truncate(app.run_observables, res.policy())(state)
+            uni = truncate(app.run_observables, app.uniform_policy())(state)
+            ladder = [app.uniform_policy(f"e8m{m}") for m in APP_LADDER]
+            batched = handle.batch(handle.tables(ladder))
+            direct = [truncate(app.run_observables, p)(state) for p in ladder]
+        v = oracle.verdict(app, mixed, ref64)
+        err_uni = oracle.oracle_error(app, uni, ref64)
+        ladder_bits = sum(
+            bit_mismatches(batched[k][i], direct[i][k])
+            for i in range(len(ladder)) for k in direct[i])
+        rows = res.evals_used + 1
+        dyn = after["quantize_em_dynamic"] - before["quantize_em_dynamic"]
+        out[name] = dict(
+            frontier=[(a.scope.path, a.scope.fraction)
+                      for a in res.assignments.values()],
+            assignments={p: [a.man_bits, a.excluded]
+                         for p, a in res.assignments.items()},
+            num_sites=res.n_sites, site_executions=handle.site_executions,
+            evals_used=res.evals_used, n_dispatches=res.n_dispatches,
+            converged=res.converged, final_error=res.final_error,
+            n_compiles=res.n_compiles, n_traces=res.n_traces,
+            search_s=t1 - t0, dynamic_launches=dyn,
+            oracle_error=v.error, budget=v.budget, f32_floor=v.floor,
+            uniform_low=app.uniform_low, uniform_error=err_uni,
+            ladder_mismatching_bits=ladder_bits)
+        check(res.converged and res.evals_used <= APP_BUDGET
+              and res.n_compiles <= 1, name, res.table())
+        check(len(res.policy().rules) >= 1, name, res.table())
+        check(dyn == rows * handle.site_executions, name, "launches", dyn,
+              rows, handle.site_executions)
+        check(v.passed and v.floor <= app.error_budget / 10.0, name, str(v))
+        check(err_uni > app.error_budget and v.error < err_uni, name,
+              v.error, err_uni)
+        check(ladder_bits == 0, name, "sweep vs truncate", ladder_bits)
+        cpu_runs[name] = (app, res)
+    counts = kernels.launch_counts()            # ... and ends here
+
+    # the same searches on the CPU, asked for with device="cpu"
+    for name, (app, res) in cpu_runs.items():
+        t0 = time.perf_counter()
+        cres = autosearch(app.run_observables, (app.init_state(device="cpu"),),
+                          metric=app.error_metric, budget=APP_BUDGET,
+                          threshold=app.search_threshold)
+        out[name]["cpu_search_s"] = time.perf_counter() - t0
+        same = ({p: (a.man_bits, a.excluded)
+                 for p, a in cres.assignments.items()}
+                == {p: (a.man_bits, a.excluded)
+                    for p, a in res.assignments.items()})
+        out[name]["cpu_assignments_equal"] = same
+        out[name]["history_card_cpu"] = [
+            (tag, a, b) for (tag, a), (_, b) in zip(res.history,
+                                                   cres.history)]
+        check(same and [t for t, _ in res.history]
+              == [t for t, _ in cres.history]
+              and (res.evals_used, res.n_dispatches, res.converged)
+              == (cres.evals_used, cres.n_dispatches, cres.converged),
+              name, "card vs CPU search", res.table(), cres.table())
+    emit("apps_path", apps=out, launches=counts)
+    return counts
+
+
 def event_ms(fn, reps=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -1432,7 +1655,7 @@ def main():
     ap.add_argument("--wkv-seq", type=int, default=4096)
     ap.add_argument("--phases", default="kernels,fused_kernels,main_path,"
                                         "mem_path,fused_path,small_ref,times,"
-                                        "reconcile")
+                                        "reconcile,search_path,apps_path")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1468,6 +1691,11 @@ def main():
         by_path["fused_path"] = phase_fused_path(device, args.seq,
                                                  args.wkv_seq)
         counts.update(by_path["fused_path"])
+    if "search_path" in phases:
+        by_path["search_path"] = phase_search_path(
+            device, args.layers or SEARCH_LAYERS, args.seq)
+    if "apps_path" in phases:
+        by_path["apps_path"] = phase_apps_path(device)
     if "small_ref" in phases:
         phase_small_ref(device)
     if "reconcile" in phases:
@@ -1521,7 +1749,10 @@ def main():
     # every kernel of each path that ran was launched on it
     path_kernels = {"main_path": ("quantize_em_static", "quantize_em_dynamic"),
                     "mem_path": ("quantize_em_static",),
-                    "fused_path": ("flash_attention", "wkv6")}
+                    "fused_path": ("flash_attention", "wkv6"),
+                    "search_path": ("quantize_em_dynamic",),
+                    "apps_path": ("quantize_em_static",
+                                  "quantize_em_dynamic")}
     for path, names in path_kernels.items():
         if path in phases:
             check(all(by_path[path][n] > 0 for n in names), path, summary)

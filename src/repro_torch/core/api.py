@@ -168,6 +168,11 @@ class SweepHandle:
         return len(self._index)
 
     @property
+    def device(self) -> torch.device:
+        """The device the program runs on and its tables live on."""
+        return self._device
+
+    @property
     def site_executions(self) -> int:
         """Quantizer calls one evaluation makes (a site in a body that runs
         N times counts N)."""

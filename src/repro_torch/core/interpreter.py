@@ -171,7 +171,7 @@ ATEN_TO_PRIM: Dict[str, str] = _table({
                          "new_empty_strided"),
     "slice": "slice select narrow unbind diagonal",
     "split": "split split_with_sizes chunk",
-    "concatenate": "cat stack repeat",
+    "concatenate": "cat stack repeat roll",
     "gather": "index index_select gather embedding",
     "pad": "constant_pad_nd",
     "rev": "flip",

@@ -47,7 +47,12 @@ def test_every_module_is_found():
                  "repro_torch.kernels.rwkv6.ref",
                  "repro_torch.configs.h2o_danube_1_8b",
                  "repro_torch.models.transformer",
-                 "repro_torch.models.convert"):
+                 "repro_torch.models.convert",
+                 "repro_torch.search", "repro_torch.search.driver",
+                 "repro_torch.search.scopes", "repro_torch.search.metrics",
+                 "repro_torch.apps", "repro_torch.apps.base",
+                 "repro_torch.apps.sod", "repro_torch.apps.heat",
+                 "repro_torch.apps.poisson", "repro_torch.apps.oracle"):
         assert want in mods
 
 
@@ -55,7 +60,9 @@ def test_every_module_is_found():
                                    "repro_torch.kernels.quantize_em.ops",
                                    "repro_torch.models.model",
                                    "repro_torch.kernels.flash_attention.ops",
-                                   "repro_torch.kernels.rwkv6.ops"])
+                                   "repro_torch.kernels.rwkv6.ops",
+                                   "repro_torch.search",
+                                   "repro_torch.apps"])
 def test_importing_the_port_pulls_in_no_jax_and_no_reference_package(first):
     """In a fresh interpreter, whichever module comes first (the quantizer
     and the core import each other's submodules), import every module of
