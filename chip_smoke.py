@@ -6,7 +6,7 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's five paths:
+plain PyTorch version on the card, then drives the port's seven paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
@@ -28,7 +28,17 @@ plain PyTorch version on the card, then drives the port's five paths:
   * the apps path — the Sod, heat and Poisson mini-apps at their default
     sizes: ``autosearch`` against each app's FP64 oracle and budget, the
     uniform-low strawman, a swept ladder against ``truncate``, and the same
-    search on the CPU (``device="cpu"``) with the same assignments —
+    search on the CPU (``device="cpu"``) with the same assignments;
+  * the trajectory path — ``profile_trajectory`` of h2o-danube-1.8b at full
+    width and depth (one layer a step) under the main path's policy and
+    with every float result at e8m3, held to ``truncate`` and ``memtrace``;
+  * the artifact path — the profile -> warm start -> publish -> deploy
+    loop: the cold search of the depth-4 model, a trajectory profile of its
+    frontier lowered to ``ladder_hints``, the artifact through a registry in
+    a temporary directory and ``resolve_policy("danube@v1")``, a
+    warm-started re-search (the cold assignments in at most 4 dispatches);
+    and the three mini-apps warm-started from ``warm_hints()`` and from
+    their cold result's artifact —
 
 and times the kernels and the forward. Nothing is caught: any failed phase
 ends the run with a traceback and a non-zero exit code.
@@ -41,12 +51,13 @@ one library call that computes the same function (where there is one). The
 last line is ``{"ok": true, "device": {...}}``.
 
 Options (for debugging at a smaller size; the defaults are the full run):
-``--layers N`` cuts the depth (the search path's is 4 unless given),
+``--layers N`` cuts the depth (the search and artifact paths' is 4 unless
+given),
 ``--seq S`` the sequence length of the
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
-``kernels,fused_kernels,main_path,mem_path,fused_path,small_ref,times,
-reconcile,search_path,apps_path`` or adds
+``kernels,fused_kernels,main_path,mem_path,traj_path,fused_path,small_ref,
+times,reconcile,search_path,apps_path,artifact_path`` or adds
 ``profile`` (device time by kernel name for one plain and one swept forward)
 or ``isa`` (registers and spills of every WKV6 kernel, from ``nvcc -Xptxas
 -v``); ``fused_times`` alone times the flash-attention and WKV6 kernels
@@ -633,6 +644,20 @@ def sync_free(fn):
         torch.cuda.set_sync_debug_mode("default")
 
 
+def launches_of(fn):
+    """``fn()`` and the kernel launches it made, by kernel."""
+    from repro_torch import kernels
+    before = kernels.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def assigns_of(res):
+    return {p: (a.man_bits, a.excluded) for p, a in res.assignments.items()}
+
+
 def make_batch(cfg, B, S, device, seed=0):
     r = np.random.RandomState(seed)
     toks = r.randint(0, cfg.vocab, (B, S + 1))
@@ -741,13 +766,6 @@ def phase_mem_path(device, layers, seq):
                 "everywhere_e8m7": TruncationPolicy.everywhere("e8m7"),
                 "everywhere_e8m3": TruncationPolicy.everywhere("e8m3")}
     torch.cuda.synchronize()
-
-    def launches_of(fn):
-        before = kernels.launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        after = kernels.launch_counts()
-        return out, {k: after[k] - before[k] for k in after}
 
     # the shadow-lane check: layer/mlp rounded onto e5m7 and the logits
     # product onto e8m3. At the logits site the truncated lane is op-mode's
@@ -1387,10 +1405,7 @@ def phase_apps_path(device):
                           metric=app.error_metric, budget=APP_BUDGET,
                           threshold=app.search_threshold)
         out[name]["cpu_search_s"] = time.perf_counter() - t0
-        same = ({p: (a.man_bits, a.excluded)
-                 for p, a in cres.assignments.items()}
-                == {p: (a.man_bits, a.excluded)
-                    for p, a in res.assignments.items()})
+        same = assigns_of(cres) == assigns_of(res)
         out[name]["cpu_assignments_equal"] = same
         out[name]["history_card_cpu"] = [
             (tag, a, b) for (tag, a), (_, b) in zip(res.history,
@@ -1401,6 +1416,319 @@ def phase_apps_path(device):
               == (cres.evals_used, cres.n_dispatches, cres.converged),
               name, "card vs CPU search", res.table(), cres.table())
     emit("apps_path", apps=out, launches=counts)
+    return counts
+
+
+
+def phase_traj_path(device, layers, seq):
+    """Trajectory profiling: ``profile_trajectory(model.loss, ·)`` of the
+    full-width model (one layer a step: the layer loop is the model's
+    outermost loop) under the main path's scoped e5m7 policy and with every
+    float result at e8m3. Held to ``truncate`` (the loss, bit for bit) and
+    ``memtrace`` (the totals, bit for bit), to the step structure (one row
+    a layer, the post-loop ops in the row after), to the static quantizer's
+    launches under ``truncate`` and to no host synchronisation."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import (TruncationPolicy, memtrace,
+                                  profile_trajectory, truncate)
+    from repro_torch.models import Model
+
+    cfg = get_config("h2o-danube-1.8b")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    batch = make_batch(cfg, 1, seq, device)
+    n = cfg.n_layers
+    policies = {"scoped_e5m7": TruncationPolicy.scoped("layer/mlp", "e5m7"),
+                "everywhere_e8m3": TruncationPolicy.everywhere("e8m3")}
+    threshold = 1e-3
+    torch.cuda.synchronize()
+
+    info, reports = {}, {}
+    with torch.no_grad():
+        plain = model.loss(params, batch)
+        plain_ms = timed(lambda: model.loss(params, batch))
+        kernels.reset_launch_counts()           # the trajectory path starts
+        for name, pol in policies.items():
+            t_loss, t_counts = launches_of(
+                lambda: truncate(model.loss, pol)(params, batch))
+            mt = memtrace(model.loss, pol, threshold=threshold)
+            t0 = time.perf_counter()
+            (m_loss, m_rep), m_counts = launches_of(
+                lambda: sync_free(lambda: mt(params, batch)))
+            m_ms = (time.perf_counter() - t0) * 1e3
+            pt = profile_trajectory(model.loss, pol, threshold=threshold,
+                                    n_steps=n + 1)
+            walls, peaks = [], []
+            for _ in range(2):              # the walk, then a cached call
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                (p_loss, traj), p_counts = launches_of(
+                    lambda: sync_free(lambda: pt(params, batch)))
+                walls.append((time.perf_counter() - t0) * 1e3)
+                peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            reports[name] = traj
+            tot = traj.totals
+            ops = traj.op_counts.cpu()
+            info[name] = dict(
+                loss=float(p_loss), truncate_loss=float(t_loss),
+                bit_equal_to_truncate=same_bits(p_loss, t_loss),
+                bit_equal_to_memtrace=same_bits(p_loss, m_loss),
+                totals_equal_memtrace=(
+                    tot.locations == m_rep.locations
+                    and all(torch.equal(getattr(tot, k), getattr(m_rep, k))
+                            for k in ("flags", "max_rel", "op_counts"))),
+                steps_seen=int(traj.steps_seen), rows=traj.n_steps,
+                n_locations=len(tot.locations),
+                columns=len(traj.column_locations()),
+                step_counts_sum_to_totals=torch.equal(
+                    ops.sum(0), tot.op_counts.cpu()[list(
+                        traj.column_locations())]),
+                launches=p_counts, memtrace_launches=m_counts,
+                truncate_launches=t_counts, n_traces=pt.n_traces,
+                on_card=all(t.is_cuda for t in (
+                    traj.max_rel, traj.abs_sum, traj.mag_sum, traj.op_counts,
+                    traj.steps_seen)),
+                memtrace_ms=m_ms, profile_trajectory_ms=walls,
+                peak_memory_gb=peaks)
+        torch.cuda.synchronize()
+        path_counts = kernels.launch_counts()   # ... and ends here
+
+    # ---- the steps -----------------------------------------------------------
+    tail_scopes = ("final_norm", "logits", "loss")
+    for name, traj in reports.items():
+        ops = traj.op_counts.cpu()
+        scopes = traj.scopes
+        in_tail = [s.split("/")[0] in tail_scopes for s in scopes]
+        i = info[name]
+        i["rows_with_counts"] = int((ops.sum(1) > 0).sum())
+        i["tail_row_scopes"] = sorted({scopes[c] for c in range(len(scopes))
+                                       if ops[n, c] > 0})
+        i["tail_row_is_post_loop"] = all(
+            (ops[n, c] > 0) == in_tail[c] for c in range(len(scopes)))
+        i["loop_rows_hold_no_post_loop_op"] = bool(
+            (ops[:n][:, [c for c in range(len(scopes)) if in_tail[c]]]
+             == 0).all())
+        i["top5_blame"] = [(b.scope, b.onset, b.slope, b.peak_rel)
+                           for b in traj.blame(threshold)[:5]]
+        i["overhead_memtrace"] = i["memtrace_ms"] / plain_ms
+        i["overhead_trajectory"] = [w / plain_ms
+                                    for w in i["profile_trajectory_ms"]]
+        i["trajectory_over_memtrace"] = (i["profile_trajectory_ms"][0]
+                                         / i["memtrace_ms"])
+    sc = reports["scoped_e5m7"]
+    s_ops = sc.op_counts.cpu()
+    per_layer = [seq * cfg.d_ff * 2] + [seq * cfg.d_ff] * 3 \
+        + [seq * cfg.d_model]
+    info["scoped_e5m7"]["per_layer_counts"] = s_ops[0].tolist()
+    info["scoped_e5m7"]["per_layer_counts_by_hand"] = per_layer
+    emit("traj_path", model=cfg.name, n_layers=n, d_model=cfg.d_model,
+         dtype=cfg.dtype, batch=[1, seq], threshold=threshold,
+         plain_ms=plain_ms, plain_loss=float(plain), policies=info,
+         launches=path_counts)
+
+    for name, i in info.items():
+        check(i["bit_equal_to_truncate"] and i["bit_equal_to_memtrace"],
+              name, "profile_trajectory loss != truncate / memtrace", i)
+        check(i["totals_equal_memtrace"], name, "totals != memtrace's")
+        check(i["steps_seen"] == n and i["rows"] == n + 1, name, i)
+        check(i["step_counts_sum_to_totals"], name, "step counts vs totals")
+        check(i["launches"]["quantize_em_static"]
+              == i["truncate_launches"]["quantize_em_static"]
+              == i["memtrace_launches"]["quantize_em_static"], name, i)
+        check(i["launches"]["quantize_em_dynamic"] == 0, name, i)
+        check(i["n_traces"] == 1 and i["on_card"], name, i)
+        check(np.isfinite(i["loss"]), name, i)
+        check(i["tail_row_is_post_loop"]
+              and i["loop_rows_hold_no_post_loop_op"], name,
+              "post-loop ops outside the row after the last step", i)
+    sc_info = info["scoped_e5m7"]
+    check(sc_info["launches"]["quantize_em_static"] == 5 * n, sc_info)
+    check(sc.scopes == ("layer/mlp",) * 5, sc.scopes)
+    check(all(s_ops[r].tolist() == per_layer for r in range(n))
+          and s_ops[n].tolist() == [0] * 5, "scoped rows", s_ops.tolist())
+    ev = info["everywhere_e8m3"]
+    check(set(s.split("/")[0] for s in ev["tail_row_scopes"])
+          == set(tail_scopes), ev["tail_row_scopes"])
+    check(ev["rows_with_counts"] == n + 1, ev["rows_with_counts"])
+    del params
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+
+def phase_artifact_path(device, layers, seq):
+    """The profile -> warm start -> publish -> deploy loop of the
+    reference's acceptance test, on the card: the cold ``autosearch`` of the
+    full-width model at depth ``layers``, a trajectory profile of its
+    frontier at e8m5, ``ladder_hints`` calibrated by the joint metric, the
+    artifact published to a registry in a temporary directory and deployed
+    by ``resolve_policy("danube@v1")``, and a re-search warm-started from
+    the artifact's hints (the cold assignments in at most 4 dispatches).
+    Then the three mini-apps: a search warm-started from ``warm_hints()``
+    within the FP64-oracle budget, the cold result with its oracle verdict
+    through the registry, and a re-search from its hints."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.apps import APPS, get_app, oracle
+    from repro_torch.artifacts import Registry
+    from repro_torch.configs import get_config
+    from repro_torch.core import (FPFormat, TruncationPolicy, TruncationRule,
+                                  profile_trajectory, resolve_policy,
+                                  truncate, truncate_sweep)
+    from repro_torch.models import Model
+    from repro_torch.profile import ladder_hints
+    from repro_torch.search import (DEFAULT_WIDTHS, autosearch,
+                                    loss_degradation)
+
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=layers)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    batch = make_batch(cfg, 1, seq, device)
+    torch.cuda.synchronize()
+
+    def searched(fn, args, **kw):
+        """``autosearch`` with its dynamic-quantizer launches and wall s."""
+        before = kernels.launch_counts()["quantize_em_dynamic"]
+        t0 = time.perf_counter()
+        res = autosearch(fn, args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dyn = kernels.launch_counts()["quantize_em_dynamic"] - before
+        return res, dyn, wall
+
+    def site_executions(fn, args, res):
+        return truncate_sweep(fn, search_site_policy(res))(
+            *args).site_executions
+
+    kernels.reset_launch_counts()               # the artifact path starts
+    with tempfile.TemporaryDirectory() as root:
+        # ---- the loop on the model ------------------------------------------
+        kw = dict(metric=loss_degradation, budget=SEARCH_BUDGET,
+                  threshold=SEARCH_THRESHOLD)
+        args = (params, batch)
+        r0, dyn0, wall0 = searched(model.loss, args, **kw)
+        probe = TruncationPolicy(rules=tuple(
+            TruncationRule(fmt=FPFormat(8, 5), scope=p)
+            for p in r0.assignments))
+        with torch.no_grad():
+            plain = model.loss(params, batch)
+            t0 = time.perf_counter()
+            out_lo, traj = sync_free(lambda: profile_trajectory(
+                model.loss, probe, threshold=SEARCH_THRESHOLD,
+                n_steps=layers + 1)(params, batch))
+            torch.cuda.synchronize()
+            profile_s = time.perf_counter() - t0
+        joint = loss_degradation(plain.cpu().numpy(), out_lo.cpu().numpy())
+        hints = ladder_hints(traj, DEFAULT_WIDTHS, SEARCH_THRESHOLD, 5,
+                             joint_metric=joint)
+        saved = Registry(root).save(r0.to_artifact("danube", hints=hints))
+        deployed = resolve_policy("danube@v1", registry=root)
+        art = deployed.artifact
+        with torch.no_grad():
+            cold_loss = truncate(model.loss, r0.policy())(params, batch)
+            dep_loss = truncate(model.loss, deployed.policy)(params, batch)
+        r1, dyn1, wall1 = searched(model.loss, args, warm_start=art.hints,
+                                   **kw)
+        r2, dyn2, wall2 = searched(model.loss, args, warm_start=art, **kw)
+        execs = site_executions(model.loss, args, r0)
+        model_info = dict(
+            n_layers=layers, frontier=list(r0.assignments),
+            cold=dict(evals=r0.evals_used, dispatches=r0.n_dispatches,
+                      s=wall0, assignments=assigns_of(r0)),
+            profile=dict(steps_seen=int(traj.steps_seen), s=profile_s,
+                         joint_metric=joint,
+                         blame=[(b.scope, b.onset, b.peak_rel)
+                                for b in traj.blame(SEARCH_THRESHOLD)]),
+            hints=hints, saved=saved.to_json(),
+            deployed_ref=deployed.ref.to_json(),
+            deployed_loss_bit_equal=same_bits(dep_loss, cold_loss),
+            warm_hints=dict(evals=r1.evals_used, dispatches=r1.n_dispatches,
+                            s=wall1, same=assigns_of(r1) == assigns_of(r0)),
+            warm_artifact=dict(evals=r2.evals_used,
+                               dispatches=r2.n_dispatches, s=wall2,
+                               same=assigns_of(r2) == assigns_of(r0)),
+            site_executions=execs, dynamic_launches=[dyn0, dyn1, dyn2])
+        check(r0.converged and int(traj.steps_seen) == layers, model_info)
+        check(model_info["deployed_loss_bit_equal"],
+              "deployed policy's loss != the cold result's",
+              float(dep_loss), float(cold_loss))
+        check(art.digest == saved.digest == deployed.ref.digest
+              and deployed.ref.ref == "danube@v1", "digests", model_info)
+        check(art.hints == hints and deployed.policy == r0.policy(),
+              "artifact round trip")
+        check(model_info["warm_hints"]["same"]
+              and model_info["warm_artifact"]["same"]
+              and r1.n_dispatches <= 4 and r2.n_dispatches <= 4,
+              "warm re-search", model_info)
+        for res, dyn in ((r0, dyn0), (r1, dyn1), (r2, dyn2)):
+            check(dyn == (res.evals_used + 1) * execs, "launches", dyn,
+                  res.evals_used, execs)
+        del params, batch, args
+        torch.cuda.empty_cache()
+
+        # ---- the three mini-apps ---------------------------------------------
+        apps = {}
+        for name in sorted(APPS):
+            app = get_app(name)
+            state = app.init_state()
+            ref64 = oracle.fp64_reference(app)
+            kw = dict(metric=app.error_metric, budget=APP_BUDGET,
+                      threshold=app.search_threshold)
+            c0, d0, s0 = searched(app.run_observables, (state,), **kw)
+            t0 = time.perf_counter()
+            app_hints = app.warm_hints(state)
+            hints_s = time.perf_counter() - t0
+            ch, dh, sh = searched(app.run_observables, (state,),
+                                  warm_start=app_hints, **kw)
+            with torch.no_grad():
+                mixed0 = truncate(app.run_observables, c0.policy())(state)
+                mixedh = truncate(app.run_observables, ch.policy())(state)
+            v0 = oracle.verdict(app, mixed0, ref64)
+            vh = oracle.verdict(app, mixedh, ref64)
+            reg = Registry(root)
+            ref = reg.save(v0.attach(c0.to_artifact(name)))
+            loaded = Registry(root).load(name)
+            cr, dr, sr = searched(app.run_observables, (state,),
+                                  warm_start=loaded.hints, **kw)
+            execs = site_executions(app.run_observables, (state,), c0)
+            apps[name] = dict(
+                cold=dict(evals=c0.evals_used, dispatches=c0.n_dispatches,
+                          s=s0, oracle_error=v0.error),
+                warm_hints=dict(hints=app_hints, s=hints_s,
+                                evals=ch.evals_used,
+                                dispatches=ch.n_dispatches, search_s=sh,
+                                oracle_error=vh.error,
+                                same=assigns_of(ch) == assigns_of(c0)),
+                from_artifact=dict(evals=cr.evals_used,
+                                   dispatches=cr.n_dispatches, s=sr,
+                                   same=assigns_of(cr) == assigns_of(c0)),
+                budget=app.error_budget, digest=ref.digest,
+                site_executions=execs, dynamic_launches=[d0, dh, dr])
+            check(c0.converged and ch.converged and cr.converged, name,
+                  c0.table(), ch.table(), cr.table())
+            check(v0.passed and vh.passed, name, str(v0), str(vh))
+            check(loaded.digest == ref.digest and loaded.oracle == v0.to_json()
+                  and loaded.policy == c0.policy(), name, "registry trip")
+            check(assigns_of(cr) == assigns_of(c0), name, "re-search",
+                  c0.table(), cr.table())
+            if name == "sod":
+                check(cr.n_dispatches < c0.n_dispatches, name,
+                      cr.n_dispatches, c0.n_dispatches)
+            else:
+                check(cr.n_dispatches <= c0.n_dispatches, name,
+                      cr.n_dispatches, c0.n_dispatches)
+            for res, dyn in ((c0, d0), (ch, dh), (cr, dr)):
+                check(dyn == (res.evals_used + 1) * execs, name, "launches",
+                      dyn, res.evals_used, execs)
+    counts = kernels.launch_counts()            # ... and ends here
+    emit("artifact_path", model=cfg.name, d_model=cfg.d_model,
+         batch=[1, seq], budget=SEARCH_BUDGET, threshold=SEARCH_THRESHOLD,
+         model_loop=model_info, apps=apps, launches=counts)
     return counts
 
 
@@ -1654,8 +1982,10 @@ def main():
     ap.add_argument("--seq", type=int, default=8192)
     ap.add_argument("--wkv-seq", type=int, default=4096)
     ap.add_argument("--phases", default="kernels,fused_kernels,main_path,"
-                                        "mem_path,fused_path,small_ref,times,"
-                                        "reconcile,search_path,apps_path")
+                                        "mem_path,traj_path,fused_path,"
+                                        "small_ref,times,reconcile,"
+                                        "search_path,apps_path,"
+                                        "artifact_path")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1687,6 +2017,8 @@ def main():
         by_path["main_path"] = c
     if "mem_path" in phases:
         by_path["mem_path"] = phase_mem_path(device, args.layers, args.seq)
+    if "traj_path" in phases:
+        by_path["traj_path"] = phase_traj_path(device, args.layers, args.seq)
     if "fused_path" in phases:
         by_path["fused_path"] = phase_fused_path(device, args.seq,
                                                  args.wkv_seq)
@@ -1696,6 +2028,9 @@ def main():
             device, args.layers or SEARCH_LAYERS, args.seq)
     if "apps_path" in phases:
         by_path["apps_path"] = phase_apps_path(device)
+    if "artifact_path" in phases:
+        by_path["artifact_path"] = phase_artifact_path(
+            device, args.layers or SEARCH_LAYERS, args.seq)
     if "small_ref" in phases:
         phase_small_ref(device)
     if "reconcile" in phases:
@@ -1749,10 +2084,13 @@ def main():
     # every kernel of each path that ran was launched on it
     path_kernels = {"main_path": ("quantize_em_static", "quantize_em_dynamic"),
                     "mem_path": ("quantize_em_static",),
+                    "traj_path": ("quantize_em_static",),
                     "fused_path": ("flash_attention", "wkv6"),
                     "search_path": ("quantize_em_dynamic",),
                     "apps_path": ("quantize_em_static",
-                                  "quantize_em_dynamic")}
+                                  "quantize_em_dynamic"),
+                    "artifact_path": ("quantize_em_static",
+                                      "quantize_em_dynamic")}
     for path, names in path_kernels.items():
         if path in phases:
             check(all(by_path[path][n] > 0 for n in names), path, summary)

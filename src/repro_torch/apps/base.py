@@ -123,19 +123,42 @@ class MiniApp:
             TruncationRule(fmt=f, scope=s)
             for s in self.default_policy_scopes()))
 
-    # ---- instability profiling -------------------------------------------
+    # ---- instability profiling (repro_torch.profile) ---------------------
     def profile_trajectory(self, state=None, *, policy=None, threshold=None,
                            n_steps=None, **kwargs):
-        raise NotImplementedError(
-            "MiniApp.profile_trajectory needs trajectory profiling "
-            "(ROADMAP Queue A item 4: trajectories), which is not ported yet")
+        """Trajectory-profile ``run_observables``: returns ``(observables,
+        TrajectoryReport)``. The ring buffer defaults to ``self.n_steps + 1``
+        rows — one per solver step plus one for the trailing observable
+        harness — so every step of the trajectory gets its own row and the
+        blame ranking's onsets are exact. ``policy`` defaults to the app's
+        scopes uniformly at :attr:`probe_format`; ``state`` to
+        ``init_state()``, on the CUDA device."""
+        from repro_torch.core.api import profile_trajectory as _profile
+        if state is None:
+            state = self.init_state()
+        pol = policy if policy is not None \
+            else self.uniform_policy(self.probe_format)
+        thr = self.search_threshold if threshold is None else threshold
+        steps = (self.n_steps + 1) if n_steps is None else n_steps
+        return _profile(self.run_observables, pol, threshold=thr,
+                        n_steps=steps, **kwargs)(state)
 
     def warm_hints(self, state=None, *, widths=None, threshold=None,
                    **kwargs):
-        raise NotImplementedError(
-            "MiniApp.warm_hints needs trajectory profiling and ladder_hints "
-            "(ROADMAP Queue A item 4: trajectories), which are not ported "
-            "yet; pass autosearch(warm_start=...) a mapping instead")
+        """One profiling run -> ``autosearch(warm_start=...)`` hints: blame
+        the trajectory, calibrate site-level peaks against the measured
+        solver-level metric of the probe run itself, and lower onto the
+        search ladder (see ``repro_torch.profile.ladder_hints``)."""
+        from repro_torch.profile import ladder_hints
+        from repro_torch.search.driver import DEFAULT_WIDTHS
+        if state is None:
+            state = self.init_state()
+        thr = self.search_threshold if threshold is None else threshold
+        obs_lo, traj = self.profile_trajectory(state, threshold=thr, **kwargs)
+        joint = self.error_metric(self.run_observables(state), obs_lo)
+        return ladder_hints(traj, widths or DEFAULT_WIDTHS, thr,
+                            parse_format(self.probe_format).man_bits,
+                            joint_metric=joint)
 
     def __repr__(self) -> str:
         return (f"<{type(self).__name__} {self.name!r} steps={self.n_steps} "
@@ -194,8 +217,9 @@ def cg_iteration(matvec, x, r, p):
         r_new = r - alpha * Ap
     # a re-entered scope re-uses its sites; the reference traces the second
     # entries into coeffs and update as equations of their own, so they run
-    # in a hidden frame of their own (a body of one trip)
-    with loop_body("beta"):
+    # in a hidden frame of their own (one trip of straight-line code, never
+    # a trajectory step)
+    with loop_body("beta", once=True):
         with scope("coeffs"):
             beta = _dot(r_new, r_new) / (rs + _CG_EPS)
         with scope("update"):

@@ -89,10 +89,9 @@ class OracleVerdict:
                              floor=float(data["floor"]))
 
     def attach(self, artifact):
-        """Stamp this verdict onto a policy artifact."""
-        raise NotImplementedError(
-            "OracleVerdict.attach needs policy artifacts (ROADMAP Queue A "
-            "item 6: artifacts), which are not ported yet")
+        """Stamp this verdict onto a ``PolicyArtifact`` (returns the new,
+        verdict-bearing artifact — artifacts are immutable)."""
+        return artifact.with_oracle(self)
 
 
 def verdict(app: MiniApp, cand_obs: Observables,

@@ -29,9 +29,17 @@ returns the truncated outputs with a :class:`RaptorReport`;
 ``profile_counts`` runs it once, untruncated, and returns a
 :class:`CountReport`. Both cache per input signature like ``truncate``.
 
+Trajectories:
+
+    out, traj = raptor.profile_trajectory(app.run_observables, policy,
+                                          n_steps=app.n_steps + 1)(state)
+    print(traj.summary(1e-3))               # per-scope onset/blame table
+
+``profile_trajectory`` is ``memtrace`` with per-step ring buffers: one row
+per trip of the program's outermost loops (``repro_torch.profile``).
+
 ``mesh`` / ``in_shardings`` are accepted for signature parity with the
 reference package and must be ``None``: distribution is not ported yet.
-``profile_trajectory`` is not ported yet either.
 """
 from __future__ import annotations
 
@@ -276,6 +284,55 @@ def memtrace(fn: Callable, policy: TruncationPolicy, _threshold=None,
                                memmode.LocationTable)
         return memmode.run_shadowed(fn, args, kwargs, policy, threshold,
                                     impl, table)
+
+    return _attach_cache(wrapped)
+
+
+def profile_trajectory(fn: Callable, policy: TruncationPolicy,
+                       _threshold=None, *, threshold: float = 1e-3,
+                       n_steps: int = 128, sites=None, impl: str = "auto",
+                       cache: bool = True, mesh=None,
+                       in_shardings=None) -> Callable:
+    """Temporal mem-mode: returns a wrapper whose call gives ``(outputs,
+    TrajectoryReport)``, the report holding an ``(n_steps, n_loc)``
+    per-step deviation trajectory on top of ``memtrace``'s whole-run totals
+    (see ``repro_torch.profile.trajectory``).
+
+    ``n_steps`` sizes the ring buffer: one row per trip of the program's
+    outermost loops (a ``loop_body``, or a ``scope(..., loop=True)`` entry,
+    that lies in no other loop trip: the app step loop, a scanned layer
+    stack). Size it to ``MiniApp.n_steps + 1`` for an exact trajectory;
+    longer runs wrap. Inner loops accumulate into their enclosing step's
+    row, ops after the last step land in the row after it, and a
+    straight-line program lands entirely in row 0.
+
+    ``sites`` restricts the per-step trajectory to matching truncated sites
+    (substring patterns over location descriptions): only matching sites
+    get a trajectory column; whole-run totals still cover every site and
+    ``TrajectoryReport.columns`` records the column -> location mapping.
+    ``None`` keeps every site. A location description ends in the source
+    ``file:line`` of the program, which differs between this package and the
+    reference, so only scope and primitive patterns carry across.
+
+    Cached per input signature exactly like ``memtrace``
+    (``wrapper.n_traces``); the run makes no host synchronisation.
+    ``mesh`` / ``in_shardings`` must be ``None``."""
+    threshold = _legacy_threshold_shim("profile_trajectory", _threshold,
+                                       threshold)
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    _no_mesh(mesh, in_shardings)
+    sites = tuple(sites) if sites is not None else None
+    suffix = ("trajectory", policy.cache_key(), threshold, impl, n_steps,
+              sites)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        table = _per_signature(wrapped, cache, suffix, args, kwargs,
+                               memmode.LocationTable)
+        return memmode.run_shadowed(fn, args, kwargs, policy, threshold,
+                                    impl, table, traj_len=n_steps,
+                                    traj_sites=sites)
 
     return _attach_cache(wrapped)
 

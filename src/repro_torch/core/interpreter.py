@@ -245,12 +245,16 @@ def prim_name(func) -> Tuple[str, bool]:
 class _Frame:
     """One entry into a scope: ``path`` identifies it (hidden loop-body tags
     included), ``stack`` is the policy-visible name stack, ``pos`` counts
-    the aten calls made directly inside this entry."""
+    the aten calls made directly inside this entry, ``loop`` says whether
+    the entry is one trip of a loop and ``depth`` counts the loop trips it
+    lies in, its own included."""
 
-    __slots__ = ("path", "stack", "pos")
+    __slots__ = ("path", "stack", "pos", "loop", "depth")
 
-    def __init__(self, path: str, stack: str):
+    def __init__(self, path: str, stack: str, loop: bool = False,
+                 depth: int = 0):
         self.path, self.stack, self.pos = path, stack, 0
+        self.loop, self.depth = loop, depth
 
 
 _tls = threading.local()
@@ -264,32 +268,58 @@ def _frames() -> List[_Frame]:
 
 
 @contextlib.contextmanager
-def _push(tag: str, visible: bool):
+def _push(tag: str, visible: bool, loop: bool):
     frames = _frames()
     top = frames[-1]
-    frames.append(_Frame(join_stack(top.path, tag),
-                         join_stack(top.stack, tag) if visible else top.stack))
+    frame = _Frame(join_stack(top.path, tag),
+                   join_stack(top.stack, tag) if visible else top.stack,
+                   loop, top.depth + loop)
+    frames.append(frame)
     try:
         yield
     finally:
         frames.pop()
+    if loop and frame.depth == 1:
+        # one trip of an outermost loop ended: a trajectory step
+        hook = getattr(_tls, "on_step", None)
+        if hook is not None:
+            hook()
 
 
-def scope(name: str):
+@contextlib.contextmanager
+def on_step(hook):
+    """Call ``hook()`` at the end of every trip of an outermost loop run
+    inside (a ``loop_body`` or a ``scope(..., loop=True)`` entry that lies in
+    no other loop trip): the trajectory step of mem-mode, what one trip of a
+    depth-0 ``scan`` or ``while`` is to the reference."""
+    prev = getattr(_tls, "on_step", None)
+    _tls.on_step = hook
+    try:
+        yield
+    finally:
+        _tls.on_step = prev
+
+
+def scope(name: str, *, loop: bool = False):
     """Region marker (the ``_raptor_trunc_func_*`` analogue): ops run inside
     carry ``name`` on their scope stack, which policies match by glob. Each
     entry starts a fresh site count, so re-entering the same scope re-uses
-    its sites."""
+    its sites. ``loop=True`` marks each entry as one trip of a loop (a
+    Python loop over a stack the reference scans, like a model's layers):
+    it changes no site, only where trajectory steps fall (``on_step``)."""
     if not name or "/" in name or name.startswith("#"):
         raise ValueError(f"scope name must be one plain segment, got {name!r}")
-    return _push(name, True)
+    return _push(name, True, loop)
 
 
-def loop_body(tag: str):
+def loop_body(tag: str, *, once: bool = False):
     """Mark the body of a Python loop: every iteration entered through this
     context shares one set of sites, and the policy-visible name stack does
-    not change (what a scanned body is to the reference)."""
-    return _push("#" + tag, False)
+    not change (what a scanned body is to the reference). ``once=True``
+    marks a hidden frame of one trip instead: straight-line code that needs
+    sites of its own (a scope entered a second time), which is no loop and
+    never a trajectory step."""
+    return _push("#" + tag, False, not once)
 
 
 def current_stack() -> str:

@@ -44,6 +44,20 @@ reference's semantics:
 Counts are int64 on the program's device; the reference's are int32 unless
 x64 is on, which a full-width model outgrows. Nothing here synchronises
 with the host: the report stays on the device until it is read.
+
+**Trajectory mode** (``traj_len > 0``, see ``repro_torch.profile.trajectory``)
+also records *when* each site's error appears: one row per trajectory step,
+a ring of ``traj_len`` rows, one column per location (or per location that
+a ``traj_sites`` substring pattern selects). A step is one trip of an
+OUTERMOST loop: a ``loop_body`` or ``scope(..., loop=True)`` entry that lies
+in no other loop trip (``interpreter.on_step``), which is what one trip of a
+depth-0 ``scan`` or ``while`` is to the reference. Each site execution adds
+its largest deviation, its |error| sum, its |shadow| sum and its element
+count to the row of the step it runs in; at the end of the run each step's
+row folds into the ring at ``step % traj_len``, in step order, and ops after
+the last step (a final norm, the logits) land in the row after it. The step
+counter is a host integer (the loops are Python loops); every statistic
+stays on the device, and the run makes no host synchronisation.
 """
 from __future__ import annotations
 
@@ -53,12 +67,13 @@ import os
 import sys
 from typing import Any, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from repro_torch.core.interpreter import (_PolicyMode, _fresh_root,
-                                          _maybe_quantize)
+                                          _maybe_quantize, on_step)
 from repro_torch.core.policy import TruncationPolicy
 
 # Hybrid deviation floor: below this magnitude (on BOTH lanes) deviations are
@@ -84,6 +99,14 @@ def deviation(lowf, shf):
     # inf-vs-finite gives inf/inf = nan, nan in either lane propagates:
     # both are maximal disagreement, not missing data
     return rel.masked_fill_(rel.isnan(), math.inf)
+
+
+def abs_error(lowf, shf):
+    """Elementwise |low - shadow| as the trajectory sums it: exactly 0 for
+    bitwise-equal lanes (including inf==inf) and inf where it is NaN."""
+    err = (lowf - shf).abs_()
+    err.masked_fill_(lowf == shf, 0.0)
+    return err.masked_fill_(err.isnan(), math.inf)
 
 
 def _as(x, dtype, device):
@@ -207,14 +230,47 @@ class LocationTable:
 class _Tally:
     """One run's statistics, per location: the flag counts and maxima of
     each execution as device scalars (reduced once, at the end), and the
-    element counts as host integers (they depend on shapes only)."""
+    element counts as host integers (they depend on shapes only).
 
-    def __init__(self, threshold: float):
+    With ``traj_len > 0`` it also keeps, for every execution of a location
+    that has a trajectory column, its step (a host integer) and its largest
+    deviation, |error| sum and |shadow| sum (device scalars): the rows of
+    the trajectory (module docstring). ``names`` is the location table,
+    read to match ``traj_sites``."""
+
+    def __init__(self, threshold: float, traj_len: int = 0, traj_sites=None,
+                 names: Sequence[str] = ()):
         self.threshold = threshold
         self.flags: List[List[torch.Tensor]] = []
         self.maxes: List[List[torch.Tensor]] = []
         self.counts: List[int] = []
         self.device = None
+        self.traj_len = int(traj_len)
+        self.traj_sites = (tuple(traj_sites) if traj_sites is not None
+                           else None)
+        self.names = names
+        self.step = 0                  # outermost-loop trips ended so far
+        self.t_at: List[Tuple[int, int]] = []      # (step, location)
+        self.t_size: List[int] = []
+        self.t_max: List[torch.Tensor] = []
+        self.t_abs: List[torch.Tensor] = []
+        self.t_mag: List[torch.Tensor] = []
+        self._tracked: Dict[int, bool] = {}
+
+    def bump(self):
+        """The end of one outermost-loop trip (``interpreter.on_step``)."""
+        self.step += 1
+
+    def _selects(self, desc: str) -> bool:
+        """Whether the location ``desc`` gets a trajectory column."""
+        return self.traj_sites is None or any(
+            pat in desc for pat in self.traj_sites)
+
+    def _tracks(self, loc: int) -> bool:
+        hit = self._tracked.get(loc)
+        if hit is None:
+            hit = self._tracked[loc] = self._selects(self.names[loc])
+        return hit
 
     def add(self, loc: int, low: torch.Tensor, shadow: torch.Tensor):
         while len(self.counts) <= loc:
@@ -225,18 +281,37 @@ class _Tally:
         self.counts[loc] += low.numel()
         if low.numel() == 0:
             return
+        traj = self.traj_len and self._tracks(loc)
         thr = self.threshold
         if low is shadow and 0 <= thr < math.inf:
             # one tensor in both lanes: the deviation is 0 but on NaN lanes,
             # where it is inf; the same numbers without the elementwise pass
             nan = low.isnan()
             self.flags[loc].append(nan.sum())
-            self.maxes[loc].append(
-                torch.where(nan.any(), math.inf, 0.0).to(torch.float32))
+            m = torch.where(nan.any(), math.inf, 0.0).to(torch.float32)
+            self.maxes[loc].append(m)
+            if traj:
+                lowf = low.float()
+                self._record(loc, low.numel(), m, torch.where(
+                    nan, math.inf, 0.0).to(torch.float32).sum(),
+                    lowf.abs().sum())
             return
-        rel = deviation(low.float(), shadow.float())
+        lowf, shf = low.float(), shadow.float()
+        rel = deviation(lowf, shf)
         self.flags[loc].append((rel > thr).sum())
-        self.maxes[loc].append(rel.amax())
+        m = rel.amax()
+        self.maxes[loc].append(m)
+        if traj:
+            del rel
+            self._record(loc, low.numel(), m, abs_error(lowf, shf).sum(),
+                         shf.abs().sum())
+
+    def _record(self, loc, size, m, err, mag):
+        self.t_at.append((self.step, loc))
+        self.t_size.append(size)
+        self.t_max.append(m)
+        self.t_abs.append(err)
+        self.t_mag.append(mag)
 
     def report(self, names: Sequence[str], device) -> RaptorReport:
         device = self.device or device
@@ -254,6 +329,63 @@ class _Tally:
             torch.stack([torch.stack(p).amax() if p
                          else torch.zeros((), **f32) for p in maxes]),
             torch.stack([torch.full((), c, **i64) for c in counts]))
+
+    def trajectory(self, names: Sequence[str], device):
+        """The run as a ``TrajectoryReport``: the steps' rows, folded into
+        the ring in step order (the reference's per-step fold), on the
+        device, with no host synchronisation."""
+        from repro_torch.profile.trajectory import (TrajectoryReport,
+                                                    scope_of_location)
+        totals = self.report(names, device)
+        device = self.device or device
+        locs = totals.locations
+        cols = [i for i, desc in enumerate(locs) if self._selects(desc)]
+        col_of = {loc: c for c, loc in enumerate(cols)}
+        n_cols, n_rows = max(len(cols), 1), self.traj_len
+        n_steps = self.step + 1        # the loop steps and the residual row
+        cells = [(s, col_of[loc]) for s, loc in self.t_at]
+        f32 = dict(dtype=torch.float32, device=device)
+        ring_max = torch.zeros(n_rows * n_cols, **f32)
+        ring_abs = torch.zeros(n_rows, n_cols, **f32)
+        ring_mag = torch.zeros(n_rows, n_cols, **f32)
+        counts = np.zeros((n_rows, n_cols), np.int64)
+        if cells:
+            at = np.asarray(cells, np.int64)
+            np.add.at(counts, (at[:, 0] % n_rows, at[:, 1]),
+                      np.asarray(self.t_size, np.int64))
+            step_cell = upload(at[:, 0] * n_cols + at[:, 1], device)
+            ring_cell = upload((at[:, 0] % n_rows) * n_cols + at[:, 1],
+                               device)
+            # maxima fold in any order; the sums first per step, each in
+            # execution order, then into the ring in step order
+            ring_max.scatter_reduce_(0, ring_cell, torch.stack(self.t_max),
+                                     "amax")
+            fold = upload(np.arange(n_steps, dtype=np.int64) % n_rows,
+                          device)
+            for ring, vals in ((ring_abs, self.t_abs), (ring_mag, self.t_mag)):
+                per_step = torch.zeros(n_steps * n_cols, **f32)
+                per_step.index_put_((step_cell,), torch.stack(vals),
+                                    accumulate=True)
+                ring.index_put_((fold,), per_step.view(n_steps, n_cols),
+                                accumulate=True)
+        return TrajectoryReport(
+            totals=totals,
+            scopes=tuple(scope_of_location(locs[i]) for i in cols),
+            max_rel=ring_max.view(n_rows, n_cols), abs_sum=ring_abs,
+            mag_sum=ring_mag, op_counts=upload(counts, device),
+            steps_seen=torch.full((), self.step, dtype=torch.int32,
+                                  device=device),
+            columns=tuple(cols))
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``; on the card one asynchronous copy from
+    pinned memory, so no host synchronisation (a copy from pageable memory
+    synchronises)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 # --------------------------------------------------------------------------
@@ -310,11 +442,11 @@ class _ShadowMode(_PolicyMode):
     is routed into a fused kernel."""
 
     def __init__(self, policy: TruncationPolicy, threshold: float, impl: str,
-                 table: LocationTable):
+                 table: LocationTable, traj_len: int = 0, traj_sites=None):
         super().__init__(policy, impl, table.plan)
         self.table = table
         self.shadows = WeakTensorKeyDictionary()
-        self.tally = _Tally(threshold)
+        self.tally = _Tally(threshold, traj_len, traj_sites, table.names)
         self._sh_out, self._mutates = None, False
 
     # ---- the side table ----------------------------------------------------
@@ -414,7 +546,9 @@ class _ShadowMode(_PolicyMode):
             self.shadows[kept] = shadow
         return out
 
-    def report(self, device) -> RaptorReport:
+    def report(self, device):
+        if self.tally.traj_len:
+            return self.tally.trajectory(self.table.names, device)
         return self.tally.report(self.table.names, device)
 
 
@@ -426,11 +560,15 @@ def _program_device(args, kwargs):
 
 
 def run_shadowed(fn, args, kwargs, policy: TruncationPolicy, threshold: float,
-                 impl: str, table: LocationTable):
+                 impl: str, table: LocationTable, *, traj_len: int = 0,
+                 traj_sites=None):
     """Run ``fn(*args, **kwargs)`` on both lanes; returns ``(outputs of the
     truncated lane, RaptorReport)``. ``table`` carries the site decisions
-    and locations between runs of one input signature."""
-    mode = _ShadowMode(policy, threshold, impl, table)
-    with _fresh_root(), mode:
+    and locations between runs of one input signature. ``traj_len > 0``
+    returns a ``TrajectoryReport`` instead, whose ring has ``traj_len``
+    rows; ``traj_sites`` (substring patterns over location descriptions)
+    narrows its columns to the matching locations."""
+    mode = _ShadowMode(policy, threshold, impl, table, traj_len, traj_sites)
+    with _fresh_root(), on_step(mode.tally.bump), mode:
         out = fn(*args, **kwargs)
     return out, mode.report(_program_device(args, kwargs))

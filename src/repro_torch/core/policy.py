@@ -412,12 +412,14 @@ def resolve_policy(spec=None, artifact_ref=None, *,
                    registry=None) -> ResolvedPolicy:
     """Resolve *anything callers deploy a policy as* into one shape.
 
-    ``spec`` accepts a :class:`TruncationPolicy`, a policy artifact (any
-    object with a ``policy`` attribute) or a flag string
-    (``"scope:**/mlp=e5m7"`` / ``"64_to_5_14"``). Registry refs
-    (``"bench_model"`` / ``"bench_model@v3"``, or ``artifact_ref=``) need the
-    artifact registry, which is not ported yet: they raise
-    ``NotImplementedError`` instead of resolving to something else.
+    ``spec`` accepts a :class:`TruncationPolicy`, a
+    :class:`~repro_torch.artifacts.PolicyArtifact`, a flag string
+    (``"scope:**/mlp=e5m7"`` / ``"64_to_5_14"``), or a registry ref string
+    (``"bench_model"`` / ``"bench_model@v3"``). ``artifact_ref`` names a
+    registry artifact explicitly and is exclusive with ``spec``.
+    ``registry`` is a :class:`~repro_torch.artifacts.Registry`, a root path,
+    or ``None`` for the default root (``$RAPTOR_REGISTRY``, else
+    ``artifacts``).
     """
     if isinstance(spec, str) and not spec:
         spec = None
@@ -440,7 +442,8 @@ def resolve_policy(spec=None, artifact_ref=None, *,
     ref = artifact_ref or spec
     if not ref:
         return ResolvedPolicy()
-    raise NotImplementedError(
-        f"policy ref {ref!r}: the artifact registry is not ported yet; pass "
-        "a TruncationPolicy, a flag string, or TruncationPolicy.from_json "
-        "of the artifact's 'policy' entry")
+    from repro_torch.artifacts import Registry  # lazy: artifacts imports us
+    if registry is None or isinstance(registry, str):
+        registry = Registry(registry)
+    artifact, aref = registry.load_ref(ref)
+    return ResolvedPolicy(policy=artifact.policy, artifact=artifact, ref=aref)

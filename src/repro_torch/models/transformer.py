@@ -161,7 +161,10 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
     stack = params["layers"]
     for kind, lo, hi in segments(cfg):
         for i in range(lo, hi):
-            with scope("layer" if cfg.scan_layers else f"layer{i}"):
+            # the reference scans a scan_layers stack: one layer is one trip
+            # of an outermost loop there, so one trajectory step here
+            with scope("layer" if cfg.scan_layers else f"layer{i}",
+                       loop=cfg.scan_layers):
                 x = layer_forward(cfg, _tree_index(stack, i), x, positions,
                                   is_global=False)
 

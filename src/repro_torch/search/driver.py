@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import api
+from repro_torch.core.memmode import upload
 from repro_torch.core.formats import FPFormat
 from repro_torch.core.policy import TruncationPolicy, TruncationRule
 from repro_torch.search import metrics as _metrics
@@ -63,19 +64,24 @@ _UNHINTED = object()
 def _frontier_hints(warm_start, scopes) -> Dict[str, Optional[int]]:
     """Project user/profile warm-start hints onto the search frontier.
 
-    Hint keys are scope paths (site scopes, or coarser user-written
-    prefixes); a frontier scope collects every hint at, below, or above it
-    in the scope tree. Conflicts resolve conservatively: a pinned-high
-    (``None``) hint dominates, otherwise the FINEST predicted width wins (a
-    too-coarse prediction can only skip probes a sibling site needs)."""
+    Hint keys are scope paths (site scopes from ``profile.ladder_hints``,
+    or coarser user-written prefixes); a frontier scope collects every hint
+    at, below, or above it in the scope tree. Conflicts resolve
+    conservatively: a pinned-high (``None``) hint dominates, otherwise the
+    FINEST predicted width wins (a too-coarse prediction can only skip
+    probes a sibling site needs)."""
     if warm_start is None:
         return {}
+    if not hasattr(warm_start, "items") and hasattr(warm_start, "hints"):
+        # a PolicyArtifact (or anything carrying persisted hints): the
+        # blame-seeded warm start survives the process that computed it
+        warm_start = warm_start.hints
     if not hasattr(warm_start, "items"):
         raise TypeError(
             "warm_start must be a mapping of scope path -> predicted "
-            "mantissa width (None = pin to full precision); trajectory "
-            "reports lowered by ladder_hints (ROADMAP Queue A item 4) and "
-            "policy artifacts (item 6) are not ported yet, "
+            "mantissa width (None = pin to full precision), or a "
+            "PolicyArtifact carrying such hints; lower a "
+            "TrajectoryReport with repro_torch.profile.ladder_hints first, "
             f"got {type(warm_start).__name__}")
     out: Dict[str, Optional[int]] = {}
     for si in scopes:
@@ -163,10 +169,58 @@ class SearchResult:
 
     def to_artifact(self, name: str, *, hints=None, oracle=None,
                     bench=None):
-        """Package the search into a versioned policy artifact."""
-        raise NotImplementedError(
-            "SearchResult.to_artifact needs policy artifacts "
-            "(ROADMAP Queue A item 6: artifacts), which are not ported yet")
+        """Package the search into a versioned, serializable
+        :class:`repro_torch.artifacts.PolicyArtifact`.
+
+        ``hints`` defaults to :meth:`hints` (the measured assignments); pass
+        the ``ladder_hints``/``MiniApp.warm_hints`` mapping that seeded this
+        search to persist the trajectory-blame predictions instead.
+        ``oracle`` takes an ``apps.oracle.OracleVerdict``; ``bench`` a BENCH
+        row dict. Raises ``NotSerializableError`` if the policy carries
+        mask-fn rules. Every number is made a Python ``int`` / ``float`` /
+        ``bool`` first, so the artifact serialises as the reference's does
+        (``n_eqns`` counts aten calls as they ran, not traced equations:
+        ``search/scopes.py``)."""
+        from repro_torch.artifacts import PolicyArtifact, ScopeRow
+        rows = {
+            path: ScopeRow(
+                man_bits=int(a.man_bits),
+                error_at_accept=float(a.error_at_accept),
+                excluded=bool(a.excluded),
+                flops=float(a.scope.flops),
+                fraction=float(a.scope.fraction),
+                n_eqns=int(a.scope.n_eqns))
+            for path, a in self.assignments.items()}
+        prov = {
+            "threshold": float(self.threshold),
+            "budget": int(self.budget),
+            "evals_used": int(self.evals_used),
+            "final_error": float(self.final_error),
+            "converged": bool(self.converged),
+            "exp_bits": int(self.exp_bits),
+            "n_compiles": int(self.n_compiles),
+            "n_sites": int(self.n_sites),
+            "n_dispatches": int(self.n_dispatches),
+            "n_warm_hints": int(self.n_warm_hints),
+            "probe_batch": int(self.probe_batch),
+            "max_dispatch_rows": int(self.max_dispatch_rows),
+            "n_devices": int(self.n_devices),
+            "history": [[tag, float(v)] for tag, v in self.history],
+        }
+        if self.static_verdicts is not None:
+            prov["static_pruned"] = int(self.n_pruned)
+            prov["static_verdicts"] = {
+                path: dict(rungs)
+                for path, rungs in self.static_verdicts.items()}
+        use_hints = dict(hints) if hints is not None else self.hints()
+        art = PolicyArtifact(name=name, policy=self.policy(),
+                             assignments=rows, provenance=prov,
+                             hints=use_hints)
+        if oracle is not None:
+            art = art.with_oracle(oracle)
+        if bench is not None:
+            art = art.with_bench(bench)
+        return art
 
     def table(self) -> str:
         """Per-scope format table — the textual analogue of the paper's
@@ -200,15 +254,6 @@ def _no_host_sync(device: torch.device):
         yield
     finally:
         torch.cuda.set_sync_debug_mode(prev)
-
-
-def _upload(stacked: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A dispatch's tables on the program's device; on the card one
-    asynchronous copy from pinned memory (no host synchronisation)."""
-    t = torch.from_numpy(stacked)
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _to_host(outs: list, device: torch.device) -> list:
@@ -264,7 +309,9 @@ def autosearch(fn: Callable, args: Sequence = (),
     every round batches all unresolved scopes into shared dispatches. The
     bisection trusts that a scope's solo error is monotone in mantissa width;
     a non-monotone ladder can make the guided pick differ (it is still a
-    measured-admissible width, never an unvalidated one).
+    measured-admissible width, never an unvalidated one). Hints come from
+    ``profile.ladder_hints`` / ``MiniApp.warm_hints``, a ``SearchResult``'s
+    ``hints()``, or a ``PolicyArtifact``, which may be passed itself.
 
     Not ported yet, and raising ``NotImplementedError``: ``static_prune``
     (the static analysis, ROADMAP Queue A item 10) and ``mesh`` /
@@ -350,7 +397,8 @@ def autosearch(fn: Callable, args: Sequence = (),
 
     def dispatch(rows: List[np.ndarray]) -> list:
         """Evaluate the real rows of one dispatch; numpy outputs per row."""
-        tables = _upload(np.stack(rows).astype(np.int32), device)
+        # one asynchronous copy of the dispatch's tables
+        tables = upload(np.stack(rows).astype(np.int32), device)
         with torch.no_grad(), _no_host_sync(device):
             outs = [handle(tables[k]) for k in range(len(rows))]
         return _to_host(outs, device)

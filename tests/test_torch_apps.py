@@ -40,6 +40,8 @@ from repro_torch.core import (
     FPFormat, TruncationPolicy, TruncationRule, memtrace, profile_counts,
     truncate, truncate_sweep,
 )
+from repro_torch.artifacts import PolicyArtifact
+from repro_torch.search.driver import DEFAULT_WIDTHS
 from repro_torch.search.metrics import tree_leaves
 
 from test_torch_search import assert_same_search
@@ -252,14 +254,19 @@ def test_registry_and_what_is_not_ported():
                      "uniform_low", "probe_format", "name"):
             assert getattr(ta, attr) == getattr(ja, attr), (name, attr)
         assert ta.default_policy_scopes() == ja.default_policy_scopes()
+    # trajectories and artifacts are ported: the probe run has one ring
+    # row per step plus the observable harness's, and a verdict attaches
     ta = get_app("sod", **SMALL["sod"])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ta.profile_trajectory()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ta.warm_hints()
+    state = ta.init_state(device="cpu")
+    obs, traj = ta.profile_trajectory(state)
+    assert set(obs) == set(ta.observables(state))
+    assert int(traj.steps_seen) == ta.n_steps
+    assert traj.n_steps == ta.n_steps + 1
+    assert all(h is None or h in DEFAULT_WIDTHS
+               for h in ta.warm_hints(state).values())
     v = oracle.OracleVerdict("sod", 1e-3, 2e-2, 1e-5)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        v.attach(object())
+    art = v.attach(PolicyArtifact(name="sod", policy=ta.uniform_policy()))
+    assert art.oracle == v.to_json()
 
 
 def test_observable_error_edges():

@@ -52,7 +52,11 @@ def test_every_module_is_found():
                  "repro_torch.search.scopes", "repro_torch.search.metrics",
                  "repro_torch.apps", "repro_torch.apps.base",
                  "repro_torch.apps.sod", "repro_torch.apps.heat",
-                 "repro_torch.apps.poisson", "repro_torch.apps.oracle"):
+                 "repro_torch.apps.poisson", "repro_torch.apps.oracle",
+                 "repro_torch.profile", "repro_torch.profile.trajectory",
+                 "repro_torch.artifacts", "repro_torch.artifacts.artifact",
+                 "repro_torch.artifacts.registry",
+                 "repro_torch.analysis.lint"):
         assert want in mods
 
 
@@ -62,7 +66,9 @@ def test_every_module_is_found():
                                    "repro_torch.kernels.flash_attention.ops",
                                    "repro_torch.kernels.rwkv6.ops",
                                    "repro_torch.search",
-                                   "repro_torch.apps"])
+                                   "repro_torch.apps",
+                                   "repro_torch.profile",
+                                   "repro_torch.artifacts"])
 def test_importing_the_port_pulls_in_no_jax_and_no_reference_package(first):
     """In a fresh interpreter, whichever module comes first (the quantizer
     and the core import each other's submodules), import every module of

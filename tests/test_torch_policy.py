@@ -128,7 +128,7 @@ def test_from_flag_rules():
     assert p.rule_for("x", "add", torch.bfloat16) is None
 
 
-def test_parse_and_resolve_policy():
+def test_parse_and_resolve_policy(tmp_path):
     assert tc.parse_policy(None) is None and tc.parse_policy("") is None
     p = tc.parse_policy("scope:**/mlp=e5m7")
     assert p == tc.TruncationPolicy.scoped("**/mlp", "e5m7")
@@ -140,11 +140,19 @@ def test_parse_and_resolve_policy():
         tc.TruncationPolicy.from_flag("64_to_5_14")
     with pytest.raises(ValueError):
         tc.resolve_policy(p, "bench_model")
-    # the registry branch is not ported yet: it must say so, not guess
-    with pytest.raises(NotImplementedError, match="registry"):
-        tc.resolve_policy("bench_model@v3")
-    with pytest.raises(NotImplementedError, match="registry"):
-        tc.resolve_policy(artifact_ref="bench_model")
+    # registry refs resolve through the artifact registry
+    from repro_torch.artifacts import PolicyArtifact, Registry
+    reg = Registry(str(tmp_path))
+    reg.save(PolicyArtifact(name="bench_model", policy=p))
+    reg.save(PolicyArtifact(name="bench_model",
+                            policy=tc.TruncationPolicy.scoped("**", "e8m3")))
+    got = tc.resolve_policy("bench_model@v1", registry=str(tmp_path))
+    assert got.policy == p and got.ref.ref == "bench_model@v1"
+    assert got.ref.digest == got.artifact.digest
+    latest = tc.resolve_policy(artifact_ref="bench_model", registry=reg)
+    assert latest.ref.version == 2 and latest.policy.rules[0].scope == "**"
+    with pytest.raises(FileNotFoundError, match="bench_model@v3"):
+        tc.resolve_policy("bench_model@v3", registry=reg)
 
 
 def test_committed_artifact_policy_loads_and_round_trips():

@@ -475,5 +475,8 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="item 11"):
         ts.autosearch(ttoy, ta, ts.rel_error, 8, in_shardings=())
     res = ts.autosearch(ttoy, ta, ts.rel_error, 8, threshold=1e-2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        res.to_artifact("toy")
+    # artifacts are ported: the search packages into one, and anything
+    # that is neither a mapping nor carries hints is refused as warm_start
+    assert res.to_artifact("toy").policy == res.policy()
+    with pytest.raises(TypeError, match="warm_start"):
+        ts.autosearch(ttoy, ta, ts.rel_error, 8, warm_start=[("attn", 5)])
