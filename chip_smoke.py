@@ -6,7 +6,7 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's seven paths:
+plain PyTorch version on the card, then drives the port's eight paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
@@ -38,7 +38,16 @@ plain PyTorch version on the card, then drives the port's seven paths:
     a temporary directory and ``resolve_policy("danube@v1")``, a
     warm-started re-search (the cold assignments in at most 4 dispatches);
     and the three mini-apps warm-started from ``warm_hints()`` and from
-    their cold result's artifact —
+    their cold result's artifact;
+  * the models path — every model family's forward: olmoe-1b-7b (64
+    experts, top-8) at full width and depth, bf16, 1 x 4096 tokens, through
+    ``truncate`` scoped to its experts and to its router, three swept
+    tables and ``memtrace`` of the router policy; then glm4-9b,
+    deepseek-coder-33b, internlm2-20b, qwen2-vl-7b (three position streams)
+    and rwkv6-7b at 2 layers, deepseek-v2-236b at 2 (one dense lead layer,
+    one MoE layer of 160 experts), hymba-1.5b at 3 (global layers 0 and 2)
+    and seamless-m4t-large-v2 at 2 + 2, each at full width, 1 x 2048
+    tokens, through one scoped ``truncate`` held to ``impl='ref'`` —
 
 and times the kernels and the forward. Nothing is caught: any failed phase
 ends the run with a traceback and a non-zero exit code.
@@ -52,12 +61,12 @@ last line is ``{"ok": true, "device": {...}}``.
 
 Options (for debugging at a smaller size; the defaults are the full run):
 ``--layers N`` cuts the depth (the search and artifact paths' is 4 unless
-given),
+given; on the models path, olmoe-1b-7b's),
 ``--seq S`` the sequence length of the
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,mem_path,traj_path,fused_path,small_ref,
-times,reconcile,search_path,apps_path,artifact_path`` or adds
+times,reconcile,search_path,apps_path,artifact_path,models_path`` or adds
 ``profile`` (device time by kernel name for one plain and one swept forward)
 or ``isa`` (registers and spills of every WKV6 kernel, from ``nvcc -Xptxas
 -v``); ``fused_times`` alone times the flash-attention and WKV6 kernels
@@ -926,6 +935,225 @@ def phase_mem_path(device, layers, seq):
     check(path_counts["quantize_em_static"] > 0
           and path_counts["quantize_em_dynamic"] == 0, path_counts)
     return path_counts
+
+
+# --------------------------------------------------------------------------
+# the models path: every family's forward through the quantizer kernels
+# --------------------------------------------------------------------------
+
+MODELS_SEQ = 4096          # olmoe-1b-7b's context length
+FAMILY_SEQ = 2048
+# every other family at full width, depth cut (each cut listed), with the
+# block it is profiled by
+FAMILY_CUTS = [
+    ("glm4-9b", dict(n_layers=2), ("layer/attn/qkv",)),
+    ("deepseek-coder-33b", dict(n_layers=2), ("layer/attn/qkv",)),
+    ("internlm2-20b", dict(n_layers=2), ("layer/attn/qkv",)),
+    ("qwen2-vl-7b", dict(n_layers=2), ("layer/attn/qkv",)),
+    # one dense lead layer and one MoE layer of 160 experts
+    ("deepseek-v2-236b", dict(n_layers=2),
+     ("layer/attn/mla_mix", "layer/moe/experts")),
+    ("hymba-1.5b", dict(n_layers=3, global_layers=(0, 2)), ("layer/mamba",)),
+    ("rwkv6-7b", dict(n_layers=2), ("layer/time_mix",)),
+    ("seamless-m4t-large-v2", dict(n_layers=2, enc_layers=2),
+     ("dec_layer/cross_attn",)),
+]
+
+
+def family_batch(cfg, B, S, device, seed=0):
+    """A batch for any family: tokens, or stub-frontend embeddings — frames
+    for the encoder-decoder, patches with three different M-RoPE position
+    streams (time, row, column of a 32-wide grid) for the VLM."""
+    r = np.random.RandomState(seed)
+    toks = r.randint(0, cfg.vocab, (B, S + 1))
+    nb = {"labels": toks[:, 1:].astype(np.int32)}
+    if cfg.family == "encdec":
+        nb["src_embeds"] = r.randn(B, S, cfg.d_model).astype(np.float32)
+        nb["tokens"] = toks[:, :-1].astype(np.int32)
+    elif cfg.input_mode == "embeds":
+        nb["embeds"] = r.randn(B, S, cfg.d_model).astype(np.float32)
+        s = np.arange(S)
+        nb["positions"] = np.stack([np.broadcast_to(v, (B, S)) for v in (
+            s // 256, s // 32 % 8, s % 32)]).astype(np.int32)
+    else:
+        nb["tokens"] = toks[:, :-1].astype(np.int32)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in nb.items()}
+
+
+def scoped_policy(scopes, fmt):
+    from repro_torch.core import TruncationPolicy, TruncationRule
+    return TruncationPolicy(rules=tuple(TruncationRule(fmt, scope=s)
+                                        for s in scopes))
+
+
+def matched_executions(fn, policy, args):
+    """Executions of the sites ``policy`` matches in one run of ``fn``
+    (an enumeration: it launches no quantizer)."""
+    from repro_torch.core import truncate_sweep
+    return truncate_sweep(fn, policy)(*args).site_executions
+
+
+def phase_models_path(device, layers):
+    """Every model family's forward through ``truncate``, ``truncate_sweep``
+    and ``memtrace``: olmoe-1b-7b at full width and depth (``--layers`` cuts
+    it), then each other family at full width with its depth cut. Each
+    ``truncate`` loss is held bit for bit to the same call with
+    ``impl='ref'`` (kernel against plain version), ``memtrace``'s to
+    ``truncate``'s, the static kernel's launches to the matched site
+    executions, the dynamic kernel's to the swept site executions; no call
+    synchronises with the host."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import (TruncationPolicy, memtrace, truncate,
+                                  truncate_sweep)
+    from repro_torch.models import Model
+    from repro_torch.models.moe import capacity_of
+
+    seq = MODELS_SEQ
+    cfg = get_config("olmoe-1b-7b")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    batch = family_batch(cfg, 1, seq, device)
+    policies = {"experts_e5m7": TruncationPolicy.scoped("layer/moe/experts",
+                                                        "e5m7"),
+                "router_e8m3": TruncationPolicy.scoped("layer/moe/router",
+                                                       "e8m3")}
+    table_fmts = ("e8m7", "e5m7", "e8m3")
+    torch.cuda.synchronize()
+
+    info, losses = {}, {}
+    with torch.no_grad():
+        plain = model.loss(params, batch)
+        want_static = {n: matched_executions(model.loss, p, (params, batch))
+                       for n, p in policies.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()           # the models path starts here
+        wrappers = {}
+        for name, pol in policies.items():
+            w = wrappers[name] = truncate(model.loss, pol)
+            losses[name], launched = launches_of(
+                lambda: sync_free(lambda: w(params, batch)))
+            # the plain version builds its constants from the host
+            ref = truncate(model.loss, pol, impl="ref")(params, batch)
+            info[name] = dict(loss=float(losses[name]), ref_loss=float(ref),
+                              bit_equal_to_ref=same_bits(losses[name], ref),
+                              static_launches=launched["quantize_em_static"],
+                              matched_site_executions=want_static[name],
+                              n_traces=w.n_traces)
+        sweep = truncate_sweep(model.loss, TruncationPolicy.everywhere("e5m2"))
+        handle = sweep(params, batch)
+        tables = {f: handle.device_table(handle.table(
+            TruncationPolicy.everywhere(f))) for f in table_fmts}
+        torch.cuda.synchronize()
+        swept, swept_launches = {}, {}
+        for f, t in tables.items():
+            swept[f], c = launches_of(lambda: sync_free(lambda: handle(t)))
+            swept_launches[f] = c["quantize_em_dynamic"]
+        mt = memtrace(model.loss, policies["router_e8m3"])
+        (m_loss, m_rep), m_counts = launches_of(
+            lambda: sync_free(lambda: mt(params, batch)))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()        # ... and ends here
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+        times = {"forward_plain_ms": timed(lambda: model.loss(params, batch))}
+        for name, w in wrappers.items():
+            times[f"truncate_{name}_ms"] = timed(lambda: w(params, batch))
+        for f, t in tables.items():
+            times[f"table_{f}_ms"] = timed(lambda: handle(t))
+        times["memtrace_router_e8m3_ms"] = timed(lambda: mt(params, batch),
+                                                 reps=1)
+    base = times["forward_plain_ms"]
+    overheads = {k[:-3]: v / base for k, v in times.items()
+                 if k != "forward_plain_ms"}
+    olmoe = dict(
+        model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        d_expert=cfg.moe.d_expert, vocab=cfg.vocab, dtype=cfg.dtype,
+        batch=[1, seq], capacity=capacity_of(cfg, seq),
+        n_params=model.n_params(), n_active_params=model.n_active_params(),
+        plain_loss=float(plain), policies=info,
+        table_losses={f: float(v) for f, v in swept.items()},
+        table_launches=swept_launches, num_sites=handle.num_sites,
+        site_executions_per_forward=handle.site_executions,
+        sweep_n_traces=sweep.n_traces,
+        memtrace=dict(loss=float(m_loss),
+                      bit_equal_to_truncate=same_bits(
+                          m_loss, losses["router_e8m3"]),
+                      n_traces=mt.n_traces, n_locations=len(m_rep.locations),
+                      static_launches=m_counts["quantize_em_static"],
+                      top3=[[loc, f, m] for loc, f, m in m_rep.top(3)]),
+        launches=counts, peak_memory_gb=round(peak_gb, 2), **times,
+        overhead=overheads)
+    emit("models_path", **olmoe)
+    for name, i in info.items():
+        check(i["bit_equal_to_ref"], name, "truncate kernel != impl='ref'", i)
+        check(i["static_launches"] == i["matched_site_executions"] > 0,
+              name, i)
+        check(i["n_traces"] == 1 and np.isfinite(i["loss"]), name, i)
+    for f in table_fmts:
+        check(swept_launches[f] == handle.site_executions, f, swept_launches)
+        check(np.isfinite(float(swept[f])), f, swept)
+    check(same_bits(swept["e5m7"], truncate(model.loss, TruncationPolicy
+                                            .everywhere("e5m7"))(params,
+                                                                 batch)),
+          "the swept e5m7 table != truncate of the same policy")
+    check(sweep.n_traces == 1, sweep.n_traces)
+    check(olmoe["memtrace"]["bit_equal_to_truncate"]
+          and mt.n_traces == 1, olmoe["memtrace"])
+    check(m_counts["quantize_em_static"]
+          == info["router_e8m3"]["static_launches"], m_counts)
+    check(np.isfinite(float(plain)) and plain.shape == (), plain)
+    check(info["router_e8m3"]["loss"] != float(plain), "router had no effect")
+    del params, batch, handle, sweep, tables, mt, wrappers
+    torch.cuda.empty_cache()
+
+    # ---- every other family: full width, depth cut -----------------------
+    families = []
+    for arch, cut, scopes in FAMILY_CUTS:
+        fcfg = get_config(arch).replace(**cut)
+        fmodel = Model(fcfg)
+        fparams = fmodel.init(seed=0)
+        fbatch = family_batch(fcfg, 1, FAMILY_SEQ, device)
+        pol = scoped_policy(scopes, "e5m7")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            floss = sync_free(lambda: fmodel.loss(fparams, fbatch))
+            forward_ms = timed(lambda: fmodel.loss(fparams, fbatch), reps=1)
+            want = matched_executions(fmodel.loss, pol, (fparams, fbatch))
+            w = truncate(fmodel.loss, pol)
+            t0 = time.perf_counter()
+            tl, launched = launches_of(
+                lambda: sync_free(lambda: w(fparams, fbatch)))
+            trunc_ms = (time.perf_counter() - t0) * 1e3
+            ref = truncate(fmodel.loss, pol, impl="ref")(fparams, fbatch)
+            counts["quantize_em_static"] += launched["quantize_em_static"]
+            fam = dict(model=arch, cut=cut, scopes=list(scopes),
+                       n_params=fmodel.n_params(), batch=[1, FAMILY_SEQ],
+                       loss=float(floss), truncate_loss=float(tl),
+                       ref_loss=float(ref),
+                       bit_equal_to_ref=same_bits(tl, ref),
+                       static_launches=launched["quantize_em_static"],
+                       matched_site_executions=want,
+                       changed_the_loss=float(tl) != float(floss),
+                       forward_ms=forward_ms, truncate_first_call_ms=trunc_ms,
+                       peak_memory_gb=round(
+                           torch.cuda.max_memory_allocated() / 2**30, 2))
+        families.append(fam)
+        emit("models_path_family", **fam)
+        check(np.isfinite(fam["loss"]) and np.isfinite(fam["truncate_loss"]),
+              arch, fam)
+        check(fam["bit_equal_to_ref"], arch, "truncate kernel != impl='ref'",
+              fam)
+        check(fam["static_launches"] == want > 0, arch, fam)
+        del fparams, fbatch, w
+        torch.cuda.empty_cache()
+    return counts
 
 
 def drive_fused(name, program, args, scoped, kernel, routed):
@@ -1985,7 +2213,7 @@ def main():
                                         "mem_path,traj_path,fused_path,"
                                         "small_ref,times,reconcile,"
                                         "search_path,apps_path,"
-                                        "artifact_path")
+                                        "artifact_path,models_path")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2031,6 +2259,8 @@ def main():
     if "artifact_path" in phases:
         by_path["artifact_path"] = phase_artifact_path(
             device, args.layers or SEARCH_LAYERS, args.seq)
+    if "models_path" in phases:
+        by_path["models_path"] = phase_models_path(device, args.layers)
     if "small_ref" in phases:
         phase_small_ref(device)
     if "reconcile" in phases:
@@ -2090,7 +2320,9 @@ def main():
                     "apps_path": ("quantize_em_static",
                                   "quantize_em_dynamic"),
                     "artifact_path": ("quantize_em_static",
-                                      "quantize_em_dynamic")}
+                                      "quantize_em_dynamic"),
+                    "models_path": ("quantize_em_static",
+                                    "quantize_em_dynamic")}
     for path, names in path_kernels.items():
         if path in phases:
             check(all(by_path[path][n] > 0 for n in names), path, summary)

@@ -1,5 +1,6 @@
-"""Architecture config schema + registry of the configurations ported so far
-(same fields as the reference package's ``configs/base.py``)."""
+"""Architecture config schema + the assigned input-shape set + registry
+(same fields, shapes and configurations as the reference package's
+``configs/base.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -79,28 +80,64 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+# the assigned LM shape set (identical for all 10 archs)
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+# archs with at least one sub-quadratic sequence-mixing path run long_500k;
+# pure full-attention archs skip it
+LONG_CONTEXT_ARCHS = ("hymba-1.5b", "h2o-danube-1.8b", "rwkv6-7b")
+
 ARCH_IDS = (
     "hymba-1.5b", "glm4-9b", "deepseek-coder-33b", "internlm2-20b",
     "h2o-danube-1.8b", "olmoe-1b-7b", "deepseek-v2-236b", "rwkv6-7b",
     "seamless-m4t-large-v2", "qwen2-vl-7b",
 )
 
-# arch id -> module under repro_torch.configs, for the configs ported so far
+# arch id -> module under repro_torch.configs
 _MODULES = {
+    "hymba-1.5b": "hymba_1_5b",
+    "glm4-9b": "glm4_9b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "internlm2-20b": "internlm2_20b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "rwkv6-7b": "rwkv6_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
 
 
 def get_config(arch_id: str, variant: str = "full") -> ArchConfig:
     """Load an architecture config: ``variant`` is "full" or "smoke"."""
     if arch_id not in _MODULES:
-        if arch_id in ARCH_IDS:
-            raise KeyError(f"arch {arch_id!r} is not ported yet; ported: "
-                           f"{sorted(_MODULES)}")
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     if variant == "full":
         return mod.CONFIG
     if variant == "smoke":
         return mod.SMOKE
     raise ValueError(f"unknown variant {variant!r}")
+
+
+def cells(arch_id: str):
+    """The (shape, runnable) list for one arch — 4 assigned shapes with the
+    long_500k skip rule applied."""
+    out = []
+    for s in SHAPES.values():
+        runnable = (s.name != "long_500k") or (arch_id in LONG_CONTEXT_ARCHS)
+        out.append((s, runnable))
+    return out

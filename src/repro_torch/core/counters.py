@@ -163,7 +163,7 @@ class _CountMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        prim, _ = prim_name(func)
+        prim, _ = prim_name(func, args)
         outs = list(_tensors(out if isinstance(out, (tuple, list))
                              else (out,)))
         f = op_flops(prim, func, args, outs)

@@ -42,7 +42,11 @@ scope ``layer``) yields ONE set of sites shared by all N iterations — what
 the reference gets from scanning the layer stack. ``loop_body(tag)`` does the
 same for an anonymous loop body (the chunk loops of blockwise attention)
 without adding a segment to the policy-visible name stack, which is what the
-reference's ``lax.scan`` bodies look like to a policy.
+reference's ``lax.scan`` bodies look like to a policy. ``shared_body(name,
+*inputs)`` marks a helper the reference wraps in ``jax.jit`` (``silu``,
+``softplus``, ``jnp.var``): JAX traces it once per input signature and the
+reference's walk visits that body once per visible scope stack, so its
+calls with the same signature under the same visible scopes share sites.
 
 **Vocabulary.** Policies name reference *primitives* (``dot_general``,
 ``add``, ``exp``; ``ops=`` / ``exclude_ops=`` / ``STRUCTURAL_PRIMS``).
@@ -55,10 +59,12 @@ primitives is named after the primitive that produces its final value
 ops so that their sites fall where the reference's do.
 
 **Where site counts differ from the reference on the same model** (measured
-by ``tests/test_torch_model.py``, which prints both per scope). The sets of
-scopes that hold sites are equal, and on the f32 dense decoder every scope
-has the same sites in the same order with ONE exception: under
-``layer/attn/mix`` the reference has one more. Its ``jnp.where(mask, s,
+by ``tests/test_torch_model.py``, which prints both per scope, and for every
+family by ``tests/test_torch_families.py``). The sets of scopes that hold
+sites are equal, and on every f32 smoke model every scope has the same
+sites in the same order with ONE exception: under each scope that runs the
+blockwise attention (``layer/attn/mix``, ``.../mla_mix``,
+``dec_layer/cross_attn``) the reference has one more. Its ``jnp.where(mask, s,
 NEG_INF)`` materialises the Python constant as a traced, float-valued
 ``convert_element_type`` equation, which an everywhere-policy matches; torch
 passes the scalar straight into ``aten.where`` and no float tensor is born.
@@ -137,6 +143,9 @@ ATEN_TO_PRIM: Dict[str, str] = _table({
     "rem": "remainder fmod",
     "pow": "pow",
     "square": "square",
+    # the reference's ``lax.top_k`` is arithmetic to a policy (its values
+    # are a site), unlike ``sort``
+    "top_k": "topk",
     "sqrt": "sqrt",
     "rsqrt": "rsqrt",
     "exp": "exp",
@@ -187,7 +196,7 @@ ATEN_TO_PRIM: Dict[str, str] = _table({
     "neg": "neg",
     "sign": "sign sgn",
     "clamp": "clamp clamp_min clamp_max",
-    "sort": "sort topk",
+    "sort": "sort",
     "argmax": "argmax",
     "argmin": "argmin",
     "reduce_and": "all",
@@ -211,13 +220,20 @@ ATEN_TO_PRIM: Dict[str, str] = _table({
 _PRIM_CACHE: Dict[Any, Tuple[str, bool]] = {}
 
 
-def prim_name(func) -> Tuple[str, bool]:
+def prim_name(func, args=()) -> Tuple[str, bool]:
     """(primitive name a policy sees, whether the op writes in place) for
     one aten overload or one of the port's fused kernels (``pallas_call``,
     as in the reference). Raises ``NotImplementedError`` naming the op when
-    it is neither in ``ATEN_TO_PRIM`` nor a fused kernel."""
+    it is neither in ``ATEN_TO_PRIM`` nor a fused kernel. ``torch.square``
+    and ``x ** n`` reach the dispatcher as ``pow(x, n)``: given the call's
+    ``args``, an integer exponent is named as the reference names it,
+    ``square`` for 2 (``jnp.square``) and ``integer_pow`` otherwise."""
     hit = _PRIM_CACHE.get(func)
     if hit is not None:
+        if (func is _POW_SCALAR and len(args) > 1
+                and isinstance(args[1], int)):
+            # jnp.square and x ** n (lax.integer_pow)
+            return ("square" if args[1] == 2 else "integer_pow"), hit[1]
         return hit
     schema = func._schema
     if _fused.fused_outputs(func) is not None:
@@ -233,9 +249,11 @@ def prim_name(func) -> Tuple[str, bool]:
             f"op {schema.name} ({func}) has no entry in "
             "repro_torch.core.interpreter.ATEN_TO_PRIM: the interpreter does "
             "not know which primitive name a policy should see for it")
-    hit = (ATEN_TO_PRIM[base], bool(schema.is_mutable))
-    _PRIM_CACHE[func] = hit
-    return hit
+    _PRIM_CACHE[func] = (ATEN_TO_PRIM[base], bool(schema.is_mutable))
+    return prim_name(func, args)
+
+
+_POW_SCALAR = torch.ops.aten.pow.Tensor_Scalar
 
 
 # --------------------------------------------------------------------------
@@ -267,19 +285,22 @@ def _frames() -> List[_Frame]:
     return fr
 
 
-@contextlib.contextmanager
 def _push(tag: str, visible: bool, loop: bool):
+    top = _frames()[-1]
+    return _enter(_Frame(join_stack(top.path, tag),
+                         join_stack(top.stack, tag) if visible else top.stack,
+                         loop, top.depth + loop))
+
+
+@contextlib.contextmanager
+def _enter(frame: _Frame):
     frames = _frames()
-    top = frames[-1]
-    frame = _Frame(join_stack(top.path, tag),
-                   join_stack(top.stack, tag) if visible else top.stack,
-                   loop, top.depth + loop)
     frames.append(frame)
     try:
         yield
     finally:
         frames.pop()
-    if loop and frame.depth == 1:
+    if frame.loop and frame.depth == 1:
         # one trip of an outermost loop ended: a trajectory step
         hook = getattr(_tls, "on_step", None)
         if hook is not None:
@@ -320,6 +341,21 @@ def loop_body(tag: str, *, once: bool = False):
     sites of its own (a scope entered a second time), which is no loop and
     never a trajectory step."""
     return _push("#" + tag, False, not once)
+
+
+def shared_body(name: str, *inputs: torch.Tensor):
+    """Mark a call of a function the reference wraps in ``jax.jit``
+    (``jax.nn.silu``, ``jax.nn.softplus``, ``jnp.var``'s ``_var``). JAX
+    traces such a function once per input signature, and the reference's
+    walk visits that one body once per policy-visible scope stack, so every
+    call with ``inputs`` of the same shapes and dtypes under the same visible
+    scopes shares one set of sites, whatever hidden frames lie between
+    (``loop_body`` tags, one-trip frames). The visible stack does not change
+    and the frame is never a loop trip."""
+    sig = ",".join(f"{tuple(t.shape)}{t.dtype}" for t in inputs)
+    top = _frames()[-1]
+    return _enter(_Frame(join_stack(top.stack, f"#{name}({sig})"), top.stack,
+                         False, top.depth))
 
 
 def current_stack() -> str:
@@ -386,7 +422,7 @@ class _WalkMode(TorchDispatchMode):
         frame = _frames()[-1]
         pos = frame.pos
         frame.pos = pos + 1
-        prim, mutates = prim_name(func)
+        prim, mutates = prim_name(func, args)
         kwargs = kwargs or {}
         args, kwargs, routed = self.on_inputs(frame, pos, prim, func, args,
                                               kwargs)

@@ -1,5 +1,5 @@
-"""Attention: grouped-query attention with RoPE / partial RoPE and sliding
-windows — the training/prefill path of the dense decoder.
+"""Attention: GQA/MQA with RoPE / M-RoPE / partial RoPE and sliding windows,
+and Multi-head Latent Attention — the training/prefill paths.
 
 ``flash_attention`` is the chunked, memory-bounded plain-tensor version
 (loops over KV blocks with a running max/denominator), as it is plain tensor
@@ -8,7 +8,8 @@ code in the reference package's models too. It deliberately does not call
 inside. KV heads are never materialized to Hq (grouped einsum). The
 ``(B, H, S, D)`` layout is the reference's.
 
-Decode paths (one token against a cache) are not ported yet.
+Decode paths (one token against a cache) belong to the serving slice and
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,24 +34,25 @@ NEG_INF = -1e30
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, scale: Optional[float] = None,
                     q_chunk: int = 1024, kv_chunk: int = 1024):
-    """q: (B, Hq, S, Dk); k: (B, Hkv, S, Dk); v: (B, Hkv, S, Dv).
-    Grouped-query: Hq % Hkv == 0. Returns (B, Hq, S, Dv).
+    """q: (B, Hq, S, Dk); k: (B, Hkv, T, Dk); v: (B, Hkv, T, Dv), T == S
+    but for cross-attention (the reference's reshapes need T == S there
+    too). Grouped-query: Hq % Hkv == 0. Returns (B, Hq, S, Dv).
 
     The two chunk loops are marked as loop bodies, so to the profiler every
     (q chunk, kv chunk) pair is the same set of quantize sites."""
     B, Hq, S, Dk = q.shape
-    Hkv = k.shape[1]
+    Hkv, T = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = Hq // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(Dk)
 
     q_chunk = min(q_chunk, S)
-    kv_chunk = min(kv_chunk, S)
-    nq, nk = -(-S // q_chunk), -(-S // kv_chunk)
-    assert S % q_chunk == 0 and S % kv_chunk == 0, (S, q_chunk, kv_chunk)
+    kv_chunk = min(kv_chunk, T)
+    nq, nk = -(-S // q_chunk), -(-T // kv_chunk)
+    assert S % q_chunk == 0 and T % kv_chunk == 0, (S, T, q_chunk, kv_chunk)
 
     qg = q.reshape(B, Hkv, G, S, Dk)
-    pos = torch.arange(S, device=q.device)
+    pos = torch.arange(max(S, T), device=q.device)
 
     # sliding-window block skipping: with a static window each q chunk only
     # needs the kv chunks covering [q0 - window + 1, q0 + Cq) — an O(S*W)
@@ -147,9 +149,11 @@ def _project_qkv(p, x, cfg: ArchConfig, positions):
                               fraction=cfg.rope_fraction)
         k = common.apply_rope(k, positions, theta=cfg.rope_theta,
                               fraction=cfg.rope_fraction)
-    elif cfg.rope_type != "none":
-        raise NotImplementedError(
-            f"rope_type {cfg.rope_type!r} is not ported yet")
+    elif cfg.rope_type == "mrope":
+        q = common.apply_mrope(q, positions, theta=cfg.rope_theta,
+                               sections=cfg.mrope_sections)
+        k = common.apply_mrope(k, positions, theta=cfg.rope_theta,
+                               sections=cfg.mrope_sections)
     return q, k, v
 
 
@@ -165,3 +169,72 @@ def gqa_forward(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
         o = o.permute(0, 2, 1, 3).reshape(B, S, -1)
         out = o @ p["wo"].to(x.dtype)
     return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_param_defs(cfg: ArchConfig) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    o_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "q_down": ParamDef((d, m.q_lora), ("embed", None)),
+        "q_norm": ParamDef((m.q_lora,), (None,), init="ones"),
+        "q_up": ParamDef((m.q_lora, H * (m.nope_head_dim + m.rope_head_dim)),
+                         (None, "heads")),
+        "kv_down": ParamDef((d, m.kv_lora + m.rope_head_dim), ("embed", None)),
+        "kv_norm": ParamDef((m.kv_lora,), (None,), init="ones"),
+        "kv_up": ParamDef((m.kv_lora, H * (m.nope_head_dim + m.v_head_dim)),
+                          (None, "heads")),
+        "wo": ParamDef((H * m.v_head_dim, d), ("heads", "embed"), scale=o_scale),
+    }
+
+
+def _mla_q(p, x, cfg, positions):
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    cq = common.rmsnorm(x @ p["q_down"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["q_up"].to(x.dtype)).reshape(
+        B, S, H, m.nope_head_dim + m.rope_head_dim).permute(0, 2, 1, 3)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = common.apply_rope(q_rope, positions, theta=cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, x, cfg, positions):
+    m = cfg.mla
+    kv = x @ p["kv_down"].to(x.dtype)
+    c_kv, k_rope = kv[..., :m.kv_lora], kv[..., m.kv_lora:]
+    # the second rmsnorm under mla_qkv (after _mla_q's): sites of its own
+    with loop_body("kv_norm", once=True):
+        c_kv = common.rmsnorm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = common.apply_rope(k_rope[:, None], positions,
+                               theta=cfg.rope_theta)[:, 0]
+    return c_kv, k_rope          # (B,S,kv_lora), (B,S,rope_dim)
+
+
+def mla_forward(p, x, cfg: ArchConfig, *, positions):
+    """Training/prefill MLA in the expanded form: q/k heads of
+    nope + rope width, v heads of ``v_head_dim``."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    with scope("mla_qkv"):
+        q_nope, q_rope = _mla_q(p, x, cfg, positions)
+        c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+        kv = (c_kv @ p["kv_up"].to(x.dtype)).reshape(
+            B, S, H, m.nope_head_dim + m.v_head_dim).permute(0, 2, 1, 3)
+        k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
+        k = torch.cat([k_nope, k_rope[:, None].expand(
+            B, H, S, m.rope_head_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+    with scope("mla_mix"):
+        scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+        o = flash_attention(q, k, v, causal=True, scale=scale)
+    with scope("mla_proj"):
+        o = o.permute(0, 2, 1, 3).reshape(B, S, H * m.v_head_dim)
+        out = o @ p["wo"].to(x.dtype)
+    return out, (c_kv, k_rope)

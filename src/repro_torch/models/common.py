@@ -9,11 +9,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.interpreter import scope
+from repro_torch.core.interpreter import scope, shared_body
 
 
 def resolve_device(device=None) -> torch.device:
@@ -113,11 +113,26 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
     with scope("layernorm"):
         xf = x.to(torch.float32)
         mu = _mean_last(xf)
-        centered = xf - mu
-        var = _mean_last(centered * centered)
+        var = _var_last(xf)
         y = (xf - mu) * torch.rsqrt(var + eps)
         return (y * scale.to(torch.float32)
                 + bias.to(torch.float32)).to(x.dtype)
+
+
+def _var_last(x):
+    """``jnp.var(x, axis=-1, keepdims=True)`` step for step, as the
+    reference's jitted ``_var`` computes it: the mean, the squared
+    deviations, ``n - ddof`` in the float type, and the NaN of its
+    ``where(n - ddof > 0, ...)``."""
+    with shared_body("_var", x):
+        sq = torch.square(x - _mean_last(x))
+        ddof = torch.zeros((), dtype=torch.int32, device=x.device)
+        denom = float(x.shape[-1]) - ddof.to(x.dtype)
+        var = sq.sum(dim=-1, keepdim=True) / denom
+        positive = denom > 0
+        with shared_body("_where", positive, var):
+            nan = torch.full((), math.nan, dtype=x.dtype, device=x.device)
+            return torch.where(positive, var, nan.to(x.dtype, copy=True))
 
 
 # --------------------------------------------------------------------------
@@ -125,7 +140,40 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
 # --------------------------------------------------------------------------
 
 def silu(x):
-    return x * torch.sigmoid(x)
+    with shared_body("silu", x):
+        return x * torch.sigmoid(x)
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def square(x):
+    # ``pow(x, 2)``: the interpreter names it ``square``, as the reference's
+    # ``jnp.square`` is
+    return torch.square(x)
+
+
+def softplus(x):
+    """The reference's ``logaddexp(x, 0)``, step for step: max, sub, add,
+    abs, neg, exp, log1p, add, select."""
+    with shared_body("softplus", x):
+        amax = torch.clamp_min(x, 0.0)
+        delta = x - 0.0
+        is_nan = delta != delta
+        total = x + 0.0
+        tail = torch.log1p(torch.exp(-torch.abs(delta)))
+        return torch.where(is_nan, total, amax + tail)
+
+
+def softmax(x, dim: int = -1):
+    """The reference's ``jax.nn.softmax``: max, sub, exp, sum, div."""
+    unnormalized = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return unnormalized / unnormalized.sum(dim=dim, keepdim=True)
 
 
 def swiglu(gate_up):
@@ -135,19 +183,19 @@ def swiglu(gate_up):
 
 def gelu(x):
     """tanh-approximated GELU, term for term the reference's."""
-    inner = math.sqrt(2.0 / math.pi) * (x + 0.044715 * (x * x * x))
+    inner = math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)
     return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 ACTIVATIONS = {
     "swiglu": swiglu,                    # expects fused (…, 2*d_ff)
     "gelu": gelu,
-    "relu": torch.relu,
+    "relu": relu,
 }
 
 
 # --------------------------------------------------------------------------
-# RoPE family: standard and partial
+# RoPE family: standard, partial, and M-RoPE (Qwen2-VL)
 # --------------------------------------------------------------------------
 
 def rope_freqs(rotary_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -171,6 +219,27 @@ def apply_rope(x, positions, *, theta: float = 1e4, fraction: float = 1.0):
         return x
     inv = rope_freqs(rd, theta, x.device)                          # (rd/2,)
     ang = positions.to(torch.float32)[:, None, :, None] * inv  # (B,1,S,rd/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    xr, xp = x[..., :rd], x[..., rd:]
+    xr = _rotate(xr.to(torch.float32), sin, cos).to(x.dtype)
+    return torch.cat([xr, xp], dim=-1) if rd < d else xr
+
+
+def apply_mrope(x, positions, *, theta: float, sections: Sequence[int]):
+    """Multimodal RoPE (Qwen2-VL): ``positions`` is (3, B, S) for the
+    temporal/height/width indices; ``sections`` split the rd/2 frequency
+    channels among the three position streams (channel block i takes its
+    angle from stream i)."""
+    d = x.shape[-1]
+    rd = 2 * sum(sections)
+    assert rd <= d, (rd, d)
+    inv = rope_freqs(rd, theta, x.device)                          # (rd/2,)
+    ang_thw = positions.to(torch.float32)[:, :, None, :, None] * inv
+    bounds = [0]
+    for n in sections:
+        bounds.append(bounds[-1] + n)
+    ang = torch.cat([ang_thw[i, ..., bounds[i]:bounds[i + 1]]
+                     for i in range(3)], dim=-1)              # (B,1,S,rd/2)
     sin, cos = torch.sin(ang), torch.cos(ang)
     xr, xp = x[..., :rd], x[..., rd:]
     xr = _rotate(xr.to(torch.float32), sin, cos).to(x.dtype)

@@ -1,0 +1,147 @@
+"""Encoder-decoder backbone (seamless-m4t-large-v2) — training/prefill.
+
+The speech frontend is a stub, as in the reference package: the batch
+carries precomputed frame embeddings ``src_embeds`` (B, T_src, d); the
+encoder is a bidirectional transformer stack over them. The text decoder is
+causal self-attention + cross-attention into the encoder's output. Scopes
+are the reference's: ``enc_layer/self_attn``, ``enc_norm``, ``embed``,
+``dec_layer/self_attn``, ``dec_layer/cross_attn``, ``final_norm``,
+``logits``, ``loss``. Each encoder layer and each decoder layer is one trip
+of the reference's two scans, so one trajectory step each (encoder layers
+first), and each stack shares one set of sites.
+
+Decode (a growing self-attention cache against a fixed cross-attention
+memory) belongs to the serving slice and is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.interpreter import loop_body, scope
+from repro_torch.models import attention
+from repro_torch.models.common import ParamDef, torch_dtype
+from repro_torch.models.transformer import (
+    _DECODE, _positions, _tree_index, apply_norm, mlp_forward, mlp_param_defs,
+    norm_defs, stacked, token_nll,
+)
+
+
+def _enc_layer_defs(cfg: ArchConfig) -> dict:
+    return {
+        "norm1": norm_defs(cfg),
+        "attn": attention.gqa_param_defs(cfg),
+        "norm2": norm_defs(cfg),
+        "mlp": mlp_param_defs(cfg, cfg.d_ff),
+    }
+
+
+def _dec_layer_defs(cfg: ArchConfig) -> dict:
+    return {
+        "norm1": norm_defs(cfg),
+        "self_attn": attention.gqa_param_defs(cfg),
+        "norm_x": norm_defs(cfg),
+        "cross_attn": attention.gqa_param_defs(cfg),
+        "norm2": norm_defs(cfg),
+        "mlp": mlp_param_defs(cfg, cfg.d_ff),
+    }
+
+
+def model_param_defs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "embed": ParamDef((cfg.vocab, d), ("vocab", "embed")),
+        "enc_layers": stacked(_enc_layer_defs(cfg), cfg.enc_layers),
+        "enc_norm": norm_defs(cfg),
+        "dec_layers": stacked(_dec_layer_defs(cfg), cfg.n_layers),
+        "final_norm": norm_defs(cfg),
+        "lm_head": ParamDef((d, cfg.vocab), ("embed", "vocab")),
+    }
+
+
+def encode(params, src_embeds, cfg: ArchConfig):
+    x = src_embeds.to(torch_dtype(cfg.dtype))
+    B, T = x.shape[:2]
+    positions = _positions({}, cfg, T, B, x.device)
+    for i in range(cfg.enc_layers):
+        with scope("enc_layer", loop=True):
+            p_l = _tree_index(params["enc_layers"], i)
+            h = apply_norm(p_l["norm1"], x, cfg)
+            with scope("self_attn"):
+                y, _ = attention.gqa_forward(p_l["attn"], h, cfg,
+                                             positions=positions, causal=False)
+            x = x + y
+            h = _norm_again("norm2", p_l, x, cfg)
+            x = x + mlp_forward(p_l["mlp"], h, cfg)
+    with scope("enc_norm"):
+        return apply_norm(params["enc_norm"], x, cfg)
+
+
+def _norm_again(name: str, p_l, x, cfg: ArchConfig):
+    """A layer's second or third norm, all under one scope: its own sites
+    (the reference traces each call), but the jitted ``jnp.var`` inside a
+    layernorm still shares one body with the first norm's."""
+    with loop_body(name, once=True):
+        return apply_norm(p_l[name], x, cfg)
+
+
+def _cross_attend(p, x, memory, cfg: ArchConfig):
+    """q from decoder x, kv from encoder memory (non-causal, no RoPE)."""
+    B, S, _ = x.shape
+    T = memory.shape[1]
+    hd = cfg.resolved_head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd).permute(0, 2, 1, 3)
+    k = (memory @ p["wk"].to(x.dtype)).reshape(B, T, Hkv, hd).permute(0, 2, 1, 3)
+    v = (memory @ p["wv"].to(x.dtype)).reshape(B, T, Hkv, hd).permute(0, 2, 1, 3)
+    o = attention.flash_attention(q, k, v, causal=False,
+                                  q_chunk=min(1024, S), kv_chunk=min(1024, T))
+    o = o.permute(0, 2, 1, 3).reshape(B, S, -1)
+    return o @ p["wo"].to(x.dtype)
+
+
+def _dec_layer(cfg, p_l, x, memory, positions):
+    h = apply_norm(p_l["norm1"], x, cfg)
+    with scope("self_attn"):
+        y, _ = attention.gqa_forward(p_l["self_attn"], h, cfg,
+                                     positions=positions, causal=True)
+    x = x + y
+    h = _norm_again("norm_x", p_l, x, cfg)
+    with scope("cross_attn"):
+        y = _cross_attend(p_l["cross_attn"], h, memory, cfg)
+    x = x + y
+    h = _norm_again("norm2", p_l, x, cfg)
+    return x + mlp_forward(p_l["mlp"], h, cfg)
+
+
+def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
+    """batch: src_embeds (B,T,d), tokens (B,S) -> logits (B,S,V)."""
+    memory = encode(params, batch["src_embeds"], cfg)
+    with scope("embed"):
+        x = params["embed"].to(torch_dtype(cfg.dtype))[batch["tokens"]]
+    B, S = x.shape[:2]
+    positions = _positions({}, cfg, S, B, x.device)
+    for i in range(cfg.n_layers):
+        with scope("dec_layer", loop=True):
+            x = _dec_layer(cfg, _tree_index(params["dec_layers"], i), x,
+                           memory, positions)
+    if last_only:
+        x = x[:, -1:]
+    with scope("final_norm"):
+        x = apply_norm(params["final_norm"], x, cfg)
+    with scope("logits"):
+        return x.to(torch.float32) @ params["lm_head"].to(torch.float32)
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    logits = forward(params, batch, cfg)
+    with scope("loss"):
+        return token_nll(logits, batch["labels"])
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int):
+    raise NotImplementedError(_DECODE)
+
+
+def decode_step(params, cache, tokens, cfg: ArchConfig):
+    raise NotImplementedError(_DECODE)

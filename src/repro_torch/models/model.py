@@ -6,7 +6,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.common import (
     count_params, init_tree, resolve_device, torch_dtype,
 )
@@ -14,16 +14,18 @@ from repro_torch.models.common import (
 
 class Model:
     """A thin, stateless namespace of pure functions bound to ``cfg``.
-    Parameters are a plain nested dict of tensors with the layer stack on a
-    leading (L, ...) axis — the reference package's layout, so its
-    parameters carry over through ``models.convert.params_from_jax``."""
+    Parameters are a plain nested dict (and, for leading dense layers, list)
+    of tensors with each layer stack on a leading (L, ...) axis — the
+    reference package's layout, so its parameters carry over through
+    ``models.convert.params_from_jax``."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
+        self._mod = encdec if cfg.family == "encdec" else transformer
 
     # ---- parameters -------------------------------------------------------
     def param_defs(self):
-        return transformer.model_param_defs(self.cfg)
+        return self._mod.model_param_defs(self.cfg)
 
     def init(self, seed: int = 0, *, device=None) -> Dict[str, Any]:
         """Random parameters from ``seed``, made on ``device`` (``None`` =
@@ -37,19 +39,35 @@ class Model:
     def n_params(self) -> int:
         return count_params(self.param_defs())
 
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE discount) for 6ND roofline."""
+        cfg = self.cfg
+        total = self.n_params()
+        if cfg.moe is None:
+            return total
+        mc = cfg.moe
+        n_stack = cfg.n_layers - mc.first_k_dense
+        per_expert = 3 * cfg.d_model * mc.d_expert  # swiglu wi(2x) + wo
+        inactive = n_stack * (mc.n_experts - mc.top_k) * per_expert
+        return total - inactive
+
     # ---- execution --------------------------------------------------------
     def loss(self, params, batch):
-        return transformer.loss_fn(params, batch, self.cfg)
+        return self._mod.loss_fn(params, batch, self.cfg)
 
     def forward(self, params, batch):
-        return transformer.forward(params, batch, self.cfg)
+        return self._mod.forward(params, batch, self.cfg)
 
     def prefill(self, params, batch):
-        return transformer.prefill(params, batch, self.cfg)
+        """Last-token logits (B, vocab) of a full prompt."""
+        return self._mod.forward(params, batch, self.cfg,
+                                 last_only=True)[:, 0]
 
     def init_cache(self, batch_size: int, seq_len: int):
-        return transformer.init_cache(self.cfg, batch_size, seq_len)
+        return self._mod.init_cache(self.cfg, batch_size, seq_len)
 
     def decode_step(self, params, cache, tokens, embeds=None):
+        if self.cfg.family == "encdec":
+            return encdec.decode_step(params, cache, tokens, self.cfg)
         return transformer.decode_step(params, cache, tokens, self.cfg,
                                        embeds=embeds)

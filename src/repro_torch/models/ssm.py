@@ -1,0 +1,220 @@
+"""State-space sequence mixers: Mamba (Hymba's parallel SSM heads) and
+RWKV-6 "Finch" (data-dependent decay linear attention) — the
+training/prefill paths.
+
+Both are linear recurrences run over the sequence in chunks of 64 tokens,
+token by token inside a chunk, as the reference package scans them (an
+outer ``lax.scan`` over chunks, an inner one over steps). Here the two
+loops are Python loops marked as nested ``loop_body`` frames: every chunk
+shares one set of quantize sites and every step inside it another, as the
+reference's scanned bodies do, and neither inner loop is ever a trajectory
+step. The recurrence is plain tensor code, not the WKV6 kernel: the
+reference's model does not call its kernel either, and the site lists must
+stay the reference's. Every step is written from the reference's
+elementary operations, in its order, conversions included.
+
+Decode (one token against the carried state) belongs to the serving slice
+and is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.interpreter import loop_body
+from repro_torch.models import common
+from repro_torch.models.common import ParamDef
+
+_F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM) — Hymba's parallel-head branch
+# ---------------------------------------------------------------------------
+
+def mamba_param_defs(cfg: ArchConfig) -> dict:
+    sc = cfg.ssm
+    d = cfg.d_model
+    di = sc.expand * d
+    dt_rank = sc.dt_rank or -(-d // 16)
+    o_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "in_proj": ParamDef((d, 2 * di), ("embed", "mlp")),
+        "conv_w": ParamDef((sc.conv_width, di), ("conv", "mlp"), scale=0.1),
+        "conv_b": ParamDef((di,), ("mlp",), init="zeros"),
+        "x_proj": ParamDef((di, dt_rank + 2 * sc.state_dim), ("mlp", None)),
+        "dt_proj": ParamDef((dt_rank, di), (None, "mlp"), scale=0.1),
+        "dt_bias": ParamDef((di,), ("mlp",), init="zeros"),
+        "a_log": ParamDef((di, sc.state_dim), ("mlp", "state"), init="zeros"),
+        "d_skip": ParamDef((di,), ("mlp",), init="ones"),
+        "out_proj": ParamDef((di, d), ("mlp", "embed"), scale=o_scale),
+    }
+
+
+def _chunks(S: int):
+    c = min(64, S)
+    assert S % c == 0, (S, c)
+    return c, S // c
+
+
+def _mamba_core(p, xz, cfg: ArchConfig, ssm_state):
+    """xz: (B, S, 2*di). Returns (y (B,S,di), conv_state, ssm_state)."""
+    sc = cfg.ssm
+    di = sc.expand * cfg.d_model
+    dt_rank = sc.dt_rank or -(-cfg.d_model // 16)
+    x, z = torch.chunk(xz, 2, dim=-1)
+    B_, S, _ = x.shape
+
+    # causal depthwise conv (width W): the state carries the last W-1 inputs
+    W = sc.conv_width
+    pad = torch.zeros((B_, W - 1, di), dtype=x.dtype, device=x.device)
+    hist = torch.cat([pad, x], dim=1)
+    new_conv_state = hist[:, S:]                                # last W-1
+    xc = sum(hist[:, i:i + S] * p["conv_w"][i].to(x.dtype) for i in range(W))
+    xc = common.silu(xc + p["conv_b"].to(x.dtype))
+
+    proj = xc @ p["x_proj"].to(x.dtype)                         # (B,S,r+2N)
+    dt_r, Bc, Cc = torch.split(proj, [dt_rank, sc.state_dim, sc.state_dim],
+                               dim=-1)
+    dt = common.softplus(dt_r @ p["dt_proj"].to(x.dtype)
+                         + p["dt_bias"].to(x.dtype))            # (B,S,di)
+    A = -torch.exp(p["a_log"].to(_F32))                         # (di,N)
+
+    # chunked over the sequence, token by token inside a chunk
+    c, nch = _chunks(S)
+    h = ssm_state.to(_F32)
+    ys = []
+    for ci in range(nch):
+        with loop_body("chunk"):
+            sl = slice(ci * c, (ci + 1) * c)
+            dt_c, xc_c, b_c, cc_c = dt[:, sl], xc[:, sl], Bc[:, sl], Cc[:, sl]
+            da = torch.exp(dt_c.to(_F32)[..., None] * A)        # (B,c,di,N)
+            dbx = (dt_c.to(_F32) * xc_c.to(_F32))[..., None] \
+                * b_c.to(_F32)[..., None, :]
+            cc_f = cc_c.to(_F32)
+            for t in range(c):
+                with loop_body("step"):
+                    h = da[:, t] * h + dbx[:, t]                # (B,di,N)
+                    ys.append(common.einsum("bdn,bn->bd", h, cc_f[:, t]))
+    ssm_state = h
+    y = torch.stack(ys, dim=1).to(x.dtype)                      # (B,S,di)
+
+    y = y + xc * p["d_skip"].to(x.dtype)
+    y = y * common.silu(z)
+    return y, new_conv_state, ssm_state
+
+
+def mamba_forward(p, x, cfg: ArchConfig):
+    """Training/prefill: x (B,S,d) -> (y (B,S,di->d), final states)."""
+    sc = cfg.ssm
+    di = sc.expand * cfg.d_model
+    B = x.shape[0]
+    xz = x @ p["in_proj"].to(x.dtype)
+    ssm0 = torch.zeros((B, di, sc.state_dim), dtype=_F32, device=x.device)
+    y, conv_state, ssm_state = _mamba_core(p, xz, cfg, ssm0)
+    out = y @ p["out_proj"].to(x.dtype)
+    return out, {"conv": conv_state, "ssm": ssm_state}
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch)
+# ---------------------------------------------------------------------------
+
+_LORA_DIM = 64
+
+
+def _heads(cfg: ArchConfig, d: int):
+    H = cfg.n_heads if cfg.n_heads else d // 64
+    return H, d // H
+
+
+def rwkv6_param_defs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    o_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    H, hd = _heads(cfg, d)
+    return {
+        # token-shift interpolation vectors for r,k,v,w,g
+        "mu": ParamDef((5, d), (None, "embed"), scale=0.1),
+        "wr": ParamDef((d, d), ("embed", "heads")),
+        "wk": ParamDef((d, d), ("embed", "heads")),
+        "wv": ParamDef((d, d), ("embed", "heads")),
+        "wg": ParamDef((d, d), ("embed", "heads")),
+        # data-dependent decay LoRA:  w = exp(-exp(w0 + tanh(x A) B))
+        "w0": ParamDef((d,), ("embed",), init="zeros"),
+        "w_a": ParamDef((d, _LORA_DIM), ("embed", None), scale=0.1),
+        "w_b": ParamDef((_LORA_DIM, d), (None, "embed"), scale=0.1),
+        "bonus": ParamDef((H, hd), ("heads", None), scale=0.1),
+        "ln_scale": ParamDef((d,), ("embed",), init="ones"),
+        "wo": ParamDef((d, d), ("heads", "embed"), scale=o_scale),
+    }
+
+
+def _rwkv6_mix(p, x, x_prev, cfg: ArchConfig, state):
+    """Sequence mix. x: (B,S,d); x_prev: (B,1,d) last token of the previous
+    chunk (token shift); state: (B,H,hd,hd) f32. Returns (y, x_last, state)."""
+    B, S, d = x.shape
+    H, hd = _heads(cfg, d)
+
+    xs = torch.cat([x_prev, x[:, :-1]], dim=1)                  # shifted
+    mu = p["mu"].to(x.dtype)
+    xr, xk, xv, xw, xg = (x + mu[i] * (xs - x) for i in range(5))
+
+    r = (xr @ p["wr"].to(x.dtype)).reshape(B, S, H, hd)
+    k = (xk @ p["wk"].to(x.dtype)).reshape(B, S, H, hd)
+    v = (xv @ p["wv"].to(x.dtype)).reshape(B, S, H, hd)
+    g = common.silu(xg @ p["wg"].to(x.dtype))
+
+    w_log = p["w0"].to(_F32) + torch.tanh(
+        xw.to(_F32) @ p["w_a"].to(_F32)) @ p["w_b"].to(_F32)
+    w = torch.exp(-torch.exp(w_log)).reshape(B, S, H, hd)       # decay in (0,1)
+    u = p["bonus"].to(_F32)                                     # (H,hd)
+
+    # chunked over the sequence (the reference's chunk structure), token by
+    # token inside a chunk; each input is widened once, as the reference's
+    # chunking of (r, k, v, w) does
+    c, nch = _chunks(S)
+    r, k, v, w = (t.to(_F32) for t in (r, k, v, w))
+    s = state.to(_F32)
+    ys = []
+    for ci in range(nch):
+        with loop_body("chunk"):
+            for t in range(ci * c, (ci + 1) * c):
+                with loop_body("step"):
+                    r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
+                    kv = k_t[..., :, None] * v_t[..., None, :]  # (B,H,hd,hd)
+                    ys.append(common.einsum("bhi,bhij->bhj", r_t,
+                                            s + u[..., None] * kv))
+                    s = w_t[..., None] * s + kv
+    state = s
+    y = torch.stack(ys, dim=1).reshape(B, S, d)
+
+    # per-head group norm (RWKV uses GroupNorm(H); rms per head here)
+    yh = y.reshape(B, S, H, hd).to(_F32)
+    yh = yh * torch.rsqrt((yh * yh).sum(dim=-1, keepdim=True) / hd + 1e-5)
+    y = (yh.reshape(B, S, d) * p["ln_scale"].to(_F32)).to(x.dtype)
+    y = y * g
+    out = y @ p["wo"].to(x.dtype)
+    return out, x[:, -1:], state
+
+
+def rwkv6_channel_defs(cfg: ArchConfig) -> dict:
+    d, dff = cfg.d_model, cfg.d_ff
+    o_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "mu": ParamDef((2, d), (None, "embed"), scale=0.1),
+        "wk": ParamDef((d, dff), ("embed", "mlp")),
+        "wv": ParamDef((dff, d), ("mlp", "embed"), scale=o_scale),
+        "wr": ParamDef((d, d), ("embed", None)),
+    }
+
+
+def rwkv6_channel_mix(p, x, x_prev, cfg: ArchConfig):
+    xs = torch.cat([x_prev, x[:, :-1]], dim=1)
+    mu = p["mu"].to(x.dtype)
+    xk = x + mu[0] * (xs - x)
+    xr = x + mu[1] * (xs - x)
+    k = common.square(common.relu(xk @ p["wk"].to(x.dtype)))
+    kv = k @ p["wv"].to(x.dtype)
+    return common.sigmoid(xr @ p["wr"].to(x.dtype)) * kv, x[:, -1:]

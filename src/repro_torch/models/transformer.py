@@ -1,46 +1,52 @@
-"""Decoder stack: embeds -> layers -> norm -> logits (dense GQA path).
+"""Decoder stack: embeds -> layers -> norm -> logits.
 
-The port covers the dense grouped-query family (h2o-danube with its sliding
-window, and any config of the same shape). Layers are stacked into a single
-(L, ...) parameter tree, as in the reference package, and executed with a
-Python loop. Every module runs under ``scope(...)`` — these names are the
-truncation-policy surface of the profiling engine (core/policy.py), and they
-are the reference's: ``embed``, ``layer/pre_norm/rmsnorm``,
-``layer/attn/qkv``, ``layer/attn/mix``, ``layer/attn/proj``,
-``layer/post_norm``, ``layer/mlp``, ``final_norm``, ``logits``, ``loss``.
-With ``scan_layers`` every layer runs under the one scope ``layer`` and
-shares its quantize sites (what scanning the stack gives the reference);
-without it the scopes are ``layer0``, ``layer1``, … and the sites distinct.
+One generic implementation hosts all decoder families of the reference:
+  * dense GQA (glm4, deepseek-coder, internlm2, h2o-danube/SWA, qwen2-vl/M-RoPE)
+  * MoE (olmoe; deepseek-v2 with MLA + shared experts + leading dense layers)
+  * hybrid (hymba: parallel GQA-SWA + Mamba heads per layer, 3 global layers)
+  * attn-free (rwkv6: time-mix + channel-mix)
 
-Other attention types (mla, hymba, rwkv6), MoE, caches and ``decode_step``
-are not ported yet and raise.
+Layers are stacked into a single (L, ...) parameter tree, as in the
+reference package, and executed with a Python loop. Every module runs under
+``scope(...)`` — these names are the truncation-policy surface of the
+profiling engine (core/policy.py), and they are the reference's, letter for
+letter: ``embed``, ``lead_layer{i}``, ``layer``, ``global_layer``,
+``pre_norm``, ``attn/{qkv,mix,proj}``, ``attn/{mla_qkv,mla_mix,mla_proj}``,
+``mamba``, ``time_mix``, ``channel_mix``, ``post_norm``, ``mlp``,
+``moe/{router,dispatch,experts,combine,shared}``, ``final_norm``,
+``logits``, ``loss``.
+
+**Sites of repeated layers.** With ``scan_layers`` every stacked layer runs
+under the one scope ``layer`` and shares its quantize sites (what scanning
+the stack gives the reference), and each layer is one trajectory step; the
+reference's several scan segments (hymba's, split by its global layers)
+share one body too. The unrolled global layers run under ``global_layer``:
+with ``remat`` the reference traces its ``jax.checkpoint``-ed global layer
+once and every call re-uses that body, so here too they share one set of
+sites; without ``remat`` each call is inlined with sites of its own, and
+here each runs in a one-trip frame of its own. Without ``scan_layers`` the
+scopes are ``layer0``, ``layer1``, … and the sites distinct.
+
+Decode and its caches belong to the serving slice: ``init_cache`` and
+``decode_step`` raise.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.interpreter import scope
-from repro_torch.models import attention
+from repro_torch.core.interpreter import loop_body, scope
+from repro_torch.models import attention, moe as moe_mod, ssm
 from repro_torch.models.common import (
     ParamDef, ACTIVATIONS, rmsnorm, layernorm, map_defs, torch_dtype,
 )
 
-
-def _check_ported(cfg: ArchConfig):
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"attn_type {cfg.attn_type!r} is not ported yet (only 'gqa')")
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported yet")
-    if cfg.family == "encdec" or cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            "encoder-decoder and embedding-input models are not ported yet")
-    if cfg.global_layers:
-        raise NotImplementedError("global-attention layers are not ported yet")
+_DECODE = ("decode and its caches belong to the serving slice, which is not "
+           "ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -85,47 +91,134 @@ def apply_norm(p, x, cfg: ArchConfig):
 # layer definitions
 # ---------------------------------------------------------------------------
 
-def layer_param_defs(cfg: ArchConfig, kind: str = "dense") -> dict:
-    _check_ported(cfg)
-    return {"norm1": norm_defs(cfg), "norm2": norm_defs(cfg),
-            "attn": attention.gqa_param_defs(cfg),
-            "mlp": mlp_param_defs(cfg, cfg.d_ff)}
+def layer_param_defs(cfg: ArchConfig, kind: str) -> dict:
+    """kind: 'dense' | 'moe' | 'dense_lead' — which feed-forward the layer
+    carries."""
+    defs: Dict[str, Any] = {"norm1": norm_defs(cfg), "norm2": norm_defs(cfg)}
+    if cfg.attn_type == "gqa":
+        defs["attn"] = attention.gqa_param_defs(cfg)
+    elif cfg.attn_type == "mla":
+        defs["attn"] = attention.mla_param_defs(cfg)
+    elif cfg.attn_type == "hymba":
+        defs["attn"] = attention.gqa_param_defs(cfg)
+        defs["mamba"] = ssm.mamba_param_defs(cfg)
+        defs["branch_norm_attn"] = ParamDef((cfg.d_model,), ("embed",),
+                                            init="ones")
+        defs["branch_norm_ssm"] = ParamDef((cfg.d_model,), ("embed",),
+                                           init="ones")
+        defs["branch_beta"] = ParamDef((2,), (None,), init="ones")
+    elif cfg.attn_type == "rwkv6":
+        defs["time_mix"] = ssm.rwkv6_param_defs(cfg)
+    else:
+        raise ValueError(cfg.attn_type)
+
+    if cfg.attn_type == "rwkv6":
+        defs["channel_mix"] = ssm.rwkv6_channel_defs(cfg)
+    elif kind == "moe":
+        defs["moe"] = moe_mod.moe_param_defs(cfg)
+    else:
+        d_ff = cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense and
+                                      kind == "dense_lead") else cfg.d_ff
+        defs["mlp"] = mlp_param_defs(cfg, d_ff)
+    return defs
+
+
+def _seq_mix(cfg: ArchConfig, p, x, positions, is_global):
+    """The sequence-mixing block. ``is_global=True`` lifts the sliding
+    window (global-attention layers run as their own unrolled segments, so
+    the window stays static and the flash path skips out-of-window KV
+    blocks)."""
+    if cfg.attn_type == "gqa":
+        window = None if is_global else cfg.sliding_window
+        with scope("attn"):
+            y, _ = attention.gqa_forward(p["attn"], x, cfg,
+                                         positions=positions, window=window)
+        return y
+
+    if cfg.attn_type == "mla":
+        with scope("attn"):
+            y, _ = attention.mla_forward(p["attn"], x, cfg,
+                                         positions=positions)
+        return y
+
+    if cfg.attn_type == "hymba":
+        window = None if is_global else cfg.sliding_window
+        with scope("attn"):
+            ya, _ = attention.gqa_forward(p["attn"], x, cfg,
+                                          positions=positions, window=window)
+        with scope("mamba"):
+            ym, _ = ssm.mamba_forward(p["mamba"], x, cfg)
+        ya = rmsnorm(ya, p["branch_norm_attn"], cfg.norm_eps)
+        with loop_body("branch_norm_ssm", once=True):   # sites of its own
+            ym = rmsnorm(ym, p["branch_norm_ssm"], cfg.norm_eps)
+        beta = p["branch_beta"].to(x.dtype)
+        return 0.5 * (beta[0] * ya + beta[1] * ym)
+
+    if cfg.attn_type == "rwkv6":
+        with scope("time_mix"):
+            B = x.shape[0]
+            x_prev = torch.zeros((B, 1, x.shape[-1]), dtype=x.dtype,
+                                 device=x.device)
+            hd = cfg.d_model // cfg.n_heads
+            s0 = torch.zeros((B, cfg.n_heads, hd, hd), dtype=torch.float32,
+                             device=x.device)
+            y, _, _ = ssm._rwkv6_mix(p["time_mix"], x, x_prev, cfg, s0)
+            return y
+
+    raise ValueError(cfg.attn_type)
 
 
 def layer_forward(cfg: ArchConfig, p, x, positions, kind: str = "dense",
                   is_global=None):
-    """One decoder layer. ``is_global=True`` lifts the sliding window."""
+    """One decoder layer (training/prefill)."""
     with scope("pre_norm"):
         h = apply_norm(p["norm1"], x, cfg)
-    window = None if is_global else cfg.sliding_window
-    with scope("attn"):
-        y, _ = attention.gqa_forward(p["attn"], h, cfg, positions=positions,
-                                     window=window)
-    x = x + y
+    x = x + _seq_mix(cfg, p, h, positions, is_global)
     with scope("post_norm"):
         h = apply_norm(p["norm2"], x, cfg)
-    return x + mlp_forward(p["mlp"], h, cfg)
+    if cfg.attn_type == "rwkv6":
+        with scope("channel_mix"):
+            x_prev = torch.zeros((h.shape[0], 1, h.shape[-1]), dtype=h.dtype,
+                                 device=h.device)
+            y2, _ = ssm.rwkv6_channel_mix(p["channel_mix"], h, x_prev, cfg)
+    elif "moe" in p:
+        with scope("moe"):
+            y2 = moe_mod.moe_forward(p["moe"], h, cfg)
+    else:
+        y2 = mlp_forward(p["mlp"], h, cfg)
+    return x + y2
 
 
 # ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
 
+def _n_lead(cfg: ArchConfig) -> int:
+    return cfg.moe.first_k_dense if cfg.moe else 0
+
+
+def _stack_kind(cfg: ArchConfig) -> str:
+    return "moe" if cfg.moe else "dense"
+
+
+def stacked(defs, n: int):
+    """Prepend a layer-stack dim of ``n`` to every ParamDef of ``defs``."""
+    return map_defs(lambda pd: ParamDef((n,) + pd.shape, ("layers",) + pd.axes,
+                                        pd.init, pd.scale), defs)
+
+
 def model_param_defs(cfg: ArchConfig) -> dict:
-    _check_ported(cfg)
     d = cfg.d_model
-
-    def stacked(defs):  # prepend the layer-stack dim to every ParamDef
-        return map_defs(
-            lambda pd: ParamDef((cfg.n_layers,) + pd.shape,
-                                ("layers",) + pd.axes, pd.init, pd.scale),
-            defs)
-
+    n_lead = _n_lead(cfg)
+    n_stack = cfg.n_layers - n_lead
     defs: Dict[str, Any] = {
         "embed": ParamDef((cfg.vocab, d), ("vocab", "embed"), scale=0.02),
         "final_norm": norm_defs(cfg),
-        "layers": stacked(layer_param_defs(cfg)),
+        "layers": stacked(layer_param_defs(cfg, _stack_kind(cfg)), n_stack),
     }
+    if n_lead:
+        defs["lead_layers"] = [layer_param_defs(cfg, "dense_lead")
+                               for _ in range(n_lead)]
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, cfg.vocab), ("embed", "vocab"),
                                    scale=0.02)
@@ -133,11 +226,25 @@ def model_param_defs(cfg: ArchConfig) -> dict:
 
 
 def segments(cfg: ArchConfig):
-    """Execution plan over the layer stack: homogeneous ("scan", lo, hi)
-    runs. (The reference interleaves unrolled global-attention layers for
-    its hybrid family, which is not ported yet.)"""
-    _check_ported(cfg)
-    return [("scan", 0, cfg.n_layers)]
+    """Execution plan over the stacked layers: homogeneous ("scan", lo, hi)
+    runs + unrolled ("global", idx, idx + 1) layers (hymba's full-attention
+    layers). Keeps per-segment sliding windows static so the flash path can
+    skip out-of-window KV blocks."""
+    n_stack = cfg.n_layers - _n_lead(cfg)
+    globals_ = sorted(i - _n_lead(cfg) for i in cfg.global_layers
+                      if i >= _n_lead(cfg))
+    if cfg.sliding_window is None or not globals_:
+        return [("scan", 0, n_stack)]
+    segs = []
+    prev = 0
+    for g in globals_:
+        if g > prev:
+            segs.append(("scan", prev, g))
+        segs.append(("global", g, g + 1))
+        prev = g + 1
+    if prev < n_stack:
+        segs.append(("scan", prev, n_stack))
+    return segs
 
 
 def _tree_index(tree, i):
@@ -146,27 +253,61 @@ def _tree_index(tree, i):
     return tree[i]
 
 
-def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
-    """Full forward to logits. batch: tokens (+labels elsewhere).
-    ``last_only`` computes the LM head for the final position only (prefill
-    fast path: avoids materializing (B, S, vocab) logits)."""
-    _check_ported(cfg)
-    tokens = batch["tokens"]
+def _embed_inputs(params, batch, cfg: ArchConfig):
+    """tokens -> embeddings, or pass through stub-frontend embeddings."""
+    dtype = torch_dtype(cfg.dtype)
+    if cfg.input_mode == "embeds":
+        return batch["embeds"].to(dtype)
     with scope("embed"):
-        x = params["embed"].to(torch_dtype(cfg.dtype))[tokens]
+        return params["embed"].to(dtype)[batch["tokens"]]
+
+
+def _positions(batch, cfg: ArchConfig, S: int, B: int, device):
+    """(B, S) token positions, or (3, B, S) t/h/w streams for M-RoPE (from
+    ``batch["positions"]`` where the frontend gives them)."""
+    if cfg.rope_type == "mrope":
+        if "positions" in batch:
+            return batch["positions"]
+        return torch.arange(S, dtype=torch.int32,
+                            device=device)[None, None].expand(3, B, S)
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
+    """Full forward to logits. batch: tokens or embeds (+labels elsewhere;
+    ``positions`` (3, B, S) for M-RoPE). ``last_only`` computes the LM head
+    for the final position only (prefill fast path: avoids materializing
+    (B, S, vocab) logits)."""
+    x = _embed_inputs(params, batch, cfg)
     B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
+    positions = _positions(batch, cfg, S, B, x.device)
+
+    for i in range(_n_lead(cfg)):
+        with scope(f"lead_layer{i}"):
+            x = layer_forward(cfg, params["lead_layers"][i], x, positions,
+                              "dense_lead", is_global=None)
 
     stack = params["layers"]
-    for kind, lo, hi in segments(cfg):
-        for i in range(lo, hi):
-            # the reference scans a scan_layers stack: one layer is one trip
-            # of an outermost loop there, so one trajectory step here
-            with scope("layer" if cfg.scan_layers else f"layer{i}",
-                       loop=cfg.scan_layers):
+    kind = _stack_kind(cfg)
+    if cfg.scan_layers:
+        for seg, lo, hi in segments(cfg):
+            if seg == "scan":
+                for i in range(lo, hi):
+                    # one layer is one trip of the reference's scan: one
+                    # trajectory step here
+                    with scope("layer", loop=True):
+                        x = layer_forward(cfg, _tree_index(stack, i), x,
+                                          positions, kind, is_global=False)
+            else:
+                with _global_frame(cfg, lo), scope("global_layer"):
+                    x = layer_forward(cfg, _tree_index(stack, lo), x,
+                                      positions, kind, is_global=True)
+    else:
+        globals_set = {i - _n_lead(cfg) for i in cfg.global_layers}
+        for i in range(cfg.n_layers - _n_lead(cfg)):
+            with scope(f"layer{i}"):
                 x = layer_forward(cfg, _tree_index(stack, i), x, positions,
-                                  is_global=False)
+                                  kind, is_global=i in globals_set)
 
     if last_only:
         x = x[:, -1:]
@@ -179,22 +320,33 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
     return logits
 
 
+def _global_frame(cfg: ArchConfig, idx: int):
+    """Global layers share one set of sites under ``remat`` (the reference
+    re-uses its one traced checkpoint body) and have their own otherwise."""
+    if cfg.remat:
+        return contextlib.nullcontext()
+    return loop_body(f"global{idx}", once=True)
+
+
+def token_nll(logits, labels, mask=None):
+    """Mean token cross-entropy (f32), log-sum-exp written out from the
+    reference's elementary steps."""
+    amax = logits.amax(dim=-1, keepdim=True)
+    sumexp = torch.exp(logits - amax).sum(dim=-1)
+    logz = torch.log(sumexp) + amax[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))
+    nll = logz - gold[..., 0]
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.sum() / nll.numel()
+
+
 def loss_fn(params, batch, cfg: ArchConfig):
     """Mean token cross-entropy (f32)."""
     logits = forward(params, batch, cfg)
-    labels = batch["labels"]
     with scope("loss"):
-        # log-sum-exp written out from the reference's elementary steps
-        amax = logits.amax(dim=-1, keepdim=True)
-        sumexp = torch.exp(logits - amax).sum(dim=-1)
-        logz = torch.log(sumexp) + amax[..., 0]
-        gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))
-        nll = logz - gold[..., 0]
-        mask = batch.get("mask")
-        if mask is not None:
-            nll = nll * mask
-            return nll.sum() / torch.clamp(mask.sum(), min=1.0)
-        return nll.sum() / nll.numel()
+        return token_nll(logits, batch["labels"], batch.get("mask"))
 
 
 def prefill(params, batch, cfg: ArchConfig):
@@ -204,8 +356,8 @@ def prefill(params, batch, cfg: ArchConfig):
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int):
-    raise NotImplementedError("decode caches are not ported yet")
+    raise NotImplementedError(_DECODE)
 
 
 def decode_step(params, cache, tokens, cfg: ArchConfig, embeds=None):
-    raise NotImplementedError("decode_step is not ported yet")
+    raise NotImplementedError(_DECODE)

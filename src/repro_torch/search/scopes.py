@@ -63,7 +63,7 @@ class _ScopeMode(TorchDispatchMode):
         # work must not drag a scope into the search space
         if not any(o.dtype.is_floating_point for o in outs):
             return out
-        prim, _ = prim_name(func)
+        prim, _ = prim_name(func, args)
         f = op_flops(prim, func, args, outs)
         if f <= 0.0:
             return out

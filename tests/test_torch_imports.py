@@ -46,7 +46,19 @@ def test_every_module_is_found():
                  "repro_torch.kernels.rwkv6.ops",
                  "repro_torch.kernels.rwkv6.ref",
                  "repro_torch.configs.h2o_danube_1_8b",
+                 "repro_torch.configs.hymba_1_5b",
+                 "repro_torch.configs.glm4_9b",
+                 "repro_torch.configs.deepseek_coder_33b",
+                 "repro_torch.configs.internlm2_20b",
+                 "repro_torch.configs.olmoe_1b_7b",
+                 "repro_torch.configs.deepseek_v2_236b",
+                 "repro_torch.configs.rwkv6_7b",
+                 "repro_torch.configs.seamless_m4t_large_v2",
+                 "repro_torch.configs.qwen2_vl_7b",
                  "repro_torch.models.transformer",
+                 "repro_torch.models.moe",
+                 "repro_torch.models.ssm",
+                 "repro_torch.models.encdec",
                  "repro_torch.models.convert",
                  "repro_torch.search", "repro_torch.search.driver",
                  "repro_torch.search.scopes", "repro_torch.search.metrics",
@@ -63,6 +75,9 @@ def test_every_module_is_found():
 @pytest.mark.parametrize("first", ["sorted", "reversed",
                                    "repro_torch.kernels.quantize_em.ops",
                                    "repro_torch.models.model",
+                                   "repro_torch.models.moe",
+                                   "repro_torch.models.encdec",
+                                   "repro_torch.configs.olmoe_1b_7b",
                                    "repro_torch.kernels.flash_attention.ops",
                                    "repro_torch.kernels.rwkv6.ops",
                                    "repro_torch.search",

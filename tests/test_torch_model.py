@@ -271,11 +271,10 @@ def test_seeded_init_and_config_registry():
     assert Model(full).n_params() == JModel(jfull).n_params() == 1831201280
     assert {f: getattr(full, f) for f in full.__dataclass_fields__} == \
         {f: getattr(jfull, f) for f in jfull.__dataclass_fields__}
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("glm4-9b")
+    assert get_config("glm4-9b").name == "glm4-9b"    # all ten registered
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("nope")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Model(cfg.replace(attn_type="mla")).param_defs()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="nope"):
+        Model(cfg.replace(attn_type="nope")).param_defs()
+    with pytest.raises(NotImplementedError, match="serving slice"):
         m.decode_step(a, None, None)
