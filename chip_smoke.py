@@ -6,13 +6,14 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's eight paths:
+plain PyTorch version on the card, then drives the port's nine paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
     tokens, random weights from a seed;
-  * the mem path — mem-mode (``memtrace``) of the same model and batch under
-    three policies, held bit for bit to op-mode, with the counters
+  * the mem path — mem-mode (``memtrace``) of the same model, depth cut to
+    12 layers, and batch under three policies, held bit for bit to op-mode,
+    with the counters
     (``profile_counts``); phase ``reconcile`` sets the speedup model's
     prediction beside a measured f32 / bf16 ratio at depth 2;
   * the fused path — the same entry points over the fused-epilogue
@@ -47,7 +48,19 @@ plain PyTorch version on the card, then drives the port's eight paths:
     and rwkv6-7b at 2 layers, deepseek-v2-236b at 2 (one dense lead layer,
     one MoE layer of 160 experts), hymba-1.5b at 3 (global layers 0 and 2)
     and seamless-m4t-large-v2 at 2 + 2, each at full width, 1 x 2048
-    tokens, through one scoped ``truncate`` held to ``impl='ref'`` —
+    tokens, through one scoped ``truncate`` held to ``impl='ref'``;
+  * the serve path — ``repro_torch.launch.serve.main`` at glm4-9b's full
+    width and depth (40 layers, 9.4 B parameters, bf16): 8 ragged requests
+    through the continuous-batching ``Engine`` in 4 slots under
+    ``scope:**/mlp=e5m7``, every decode step's MLP results through the
+    static quantizer; the same parameters through ``Engine`` plain,
+    truncated and shadowed (``memtrace``), bit-identity of shadowed,
+    continuous and isolated decoding, decode against the forward, one drift
+    run; then every other family's decode step at full width, depth cut,
+    16 steps in 2,048-slot caches (hymba-1.5b's windowed layers through
+    their rings) against its forward and one scoped ``truncate`` held to
+    ``impl='ref'``, and h2o-danube-1.8b's ring cache decoded 4,112 steps,
+    past its 4,096-token window —
 
 and times the kernels and the forward. Nothing is caught: any failed phase
 ends the run with a traceback and a non-zero exit code.
@@ -60,13 +73,14 @@ one library call that computes the same function (where there is one). The
 last line is ``{"ok": true, "device": {...}}``.
 
 Options (for debugging at a smaller size; the defaults are the full run):
-``--layers N`` cuts the depth (the search and artifact paths' is 4 unless
-given; on the models path, olmoe-1b-7b's),
+``--layers N`` cuts the depth (the search and artifact paths' is 4 and the
+mem path's 12 unless given; on the models path, olmoe-1b-7b's),
 ``--seq S`` the sequence length of the
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,mem_path,traj_path,fused_path,small_ref,
-times,reconcile,search_path,apps_path,artifact_path,models_path`` or adds
+times,reconcile,search_path,apps_path,artifact_path,models_path,serve_path``
+or adds
 ``profile`` (device time by kernel name for one plain and one swept forward)
 or ``isa`` (registers and spills of every WKV6 kernel, from ``nvcc -Xptxas
 -v``); ``fused_times`` alone times the flash-attention and WKV6 kernels
@@ -75,6 +89,8 @@ without the quantizers (``times`` includes it).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -120,8 +136,14 @@ def check(cond, *why):
             str(w) for w in why))
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``at_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def run_text(cmd):
@@ -753,6 +775,13 @@ def phase_main_path(device, layers, seq):
     return counts, times
 
 
+# the mem path's depth unless --layers is given: every float result under
+# memtrace at full depth (24 layers, ~12 s a call, nine calls) would put the
+# default run past 600 s since the serve path came; a location still passes
+# 2^31 elements at any depth
+MEM_LAYERS = 12
+
+
 def phase_mem_path(device, layers, seq):
     """Mem-mode: ``memtrace(model.loss, ·)`` of the full-width model under
     three policies, held to op-mode on the same inputs, and the counters."""
@@ -921,7 +950,7 @@ def phase_mem_path(device, layers, seq):
           > info["everywhere_e8m7"]["total_flags"], "e8m3 flags <= e8m7")
     check(e7.locations == e3.locations
           and torch.equal(e7.op_counts, e3.op_counts), "e8m7 vs e8m3 sites")
-    if layers is None and seq == 8192:
+    if seq == 8192:         # 1.6e9 elements a layer at the scores' sites
         check(info["everywhere_e8m3"]["max_op_counts"] > 2**31,
               "no location passed 2^31 elements", info["everywhere_e8m3"])
     check(same_bits(loss0, plain) and rep0.locations == (NO_LOCATIONS,)
@@ -1133,7 +1162,7 @@ def phase_models_path(device, layers):
             trunc_ms = (time.perf_counter() - t0) * 1e3
             ref = truncate(fmodel.loss, pol, impl="ref")(fparams, fbatch)
             counts["quantize_em_static"] += launched["quantize_em_static"]
-            fam = dict(model=arch, cut=cut, scopes=list(scopes),
+            fam = dict(model=arch, cut=cut, scopes=list(scopes), fmt=DECODE_FMT,
                        n_params=fmodel.n_params(), batch=[1, FAMILY_SEQ],
                        loss=float(floss), truncate_loss=float(tl),
                        ref_loss=float(ref),
@@ -1153,6 +1182,370 @@ def phase_models_path(device, layers):
         check(fam["static_launches"] == want > 0, arch, fam)
         del fparams, fbatch, w
         torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------------------------------------------------------
+# the serve path: continuous batching of every family's decode step
+# --------------------------------------------------------------------------
+
+SERVE_POLICY = "scope:**/mlp=e5m7"
+SERVE_ARGV = ["--arch", "glm4-9b", "--production", "--batch", "4",
+              "--requests", "8", "--prompt-len", "32", "--new-tokens", "16",
+              "--max-seq", "128", "--policy", SERVE_POLICY,
+              "--shadow-rate", "0.25"]
+SERVE_BATCH, SERVE_SEQ = 4, 128
+# every other family's decode at full width, depth cut as on the models path
+# (olmoe-1b-7b at full depth, as there), with the blocks its scoped decode
+# policy rounds: a decode step opens no attention or Mamba scope
+DECODE_CUTS = [
+    ("olmoe-1b-7b", {}, ("layer/moe/experts",)),
+    ("deepseek-coder-33b", dict(n_layers=2), ("layer/mlp",)),
+    ("internlm2-20b", dict(n_layers=2), ("layer/mlp",)),
+    ("qwen2-vl-7b", dict(n_layers=2), ("layer/mlp",)),
+    # one dense lead layer and one MoE layer of 160 experts
+    ("deepseek-v2-236b", dict(n_layers=2),
+     ("lead_layer0/mlp", "layer/moe/experts")),
+    ("hymba-1.5b", dict(n_layers=3, global_layers=(0, 2)), ("layer/mlp",)),
+    ("rwkv6-7b", dict(n_layers=2), ("layer/time_mix",)),
+    ("seamless-m4t-large-v2", dict(n_layers=2, enc_layers=2),
+     ("dec_layer/cross_attn",)),
+]
+DECODE_STEPS = 16
+DECODE_SLOTS = 2048     # cache length: past hymba-1.5b's 1024-token window,
+                        # so its sliding-window layers decode through rings
+DECODE_FMT = "e5m4"     # fewer mantissa bits than bf16's 7: every site rounds
+RING_STEPS = 4112       # 16 past h2o-danube's 4096-token window
+RING_FORWARD = 5120     # the windowed forward takes whole 1024-token chunks
+# decode against the forward, bf16: the largest |difference| over the
+# largest |forward logit| (8 significant bits a rounding, other summation
+# orders in every product; a wrong position, mask or cache slot is O(1))
+LOGIT_TOL = 0.125
+
+
+@contextlib.contextmanager
+def decode_steps_sync_free():
+    """Every ``Model.decode_step`` call inside — plain, under ``truncate``
+    or under ``memtrace`` — runs with a host synchronisation an error. The
+    engine's read-back of the logits after a step lies outside."""
+    from repro_torch.models import Model
+    step = Model.decode_step
+
+    def checked(self, *args, **kwargs):
+        return sync_free(lambda: step(self, *args, **kwargs))
+    Model.decode_step = checked
+    try:
+        yield
+    finally:
+        Model.decode_step = step
+
+
+def serve_tokens(eng, work):
+    """Serve ``work`` ((prompt, budget) pairs) to the end; the tokens and
+    statuses of each request, in submission order."""
+    handles = [eng.submit(p, max_new_tokens=m) for p, m in work]
+    eng.run()
+    return [h.out_tokens for h in handles], [h.status for h in handles]
+
+
+def ms_per_tick(eng, vocab, ticks=10):
+    """Wall ms of one tick with all four slots decoding (the same four
+    requests for every engine), after two ticks of warm-up (the first is
+    the wrapper's walk). Each tick ends in the read-back of its logits."""
+    r = np.random.RandomState(1)
+    for _ in range(SERVE_BATCH):
+        eng.submit(r.randint(1, vocab, 24), max_new_tokens=64)
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.step()
+    return (time.perf_counter() - t0) * 1e3 / ticks
+
+
+def decode_against_forward(model, params, batch, steps, cache, device):
+    """``steps`` decode steps from ``cache`` against the parallel forward
+    of the same batch at every position: (largest |difference|, largest
+    |forward logit|), each step run with host synchronisation an error.
+    A MoE forward runs at a capacity that drops no token, as a decode step
+    of a few tokens never does (the same parameters, the same function)."""
+    fwd = model
+    if model.cfg.moe is not None:
+        mc = model.cfg.moe
+        fwd = type(model)(model.cfg.replace(moe=dataclasses.replace(
+            mc, capacity_factor=mc.n_experts / mc.top_k)))
+    full = fwd.forward(params, batch)
+    B = full.shape[0]
+    worst = 0.0
+    for t in range(steps):
+        if "embeds" in batch:
+            tok = torch.zeros(B, dtype=torch.int32, device=device)
+            emb = batch["embeds"][:, t:t + 1]
+        else:
+            tok, emb = batch["tokens"][:, t], None
+        logits, cache = sync_free(
+            lambda: model.decode_step(params, cache, tok, embeds=emb))
+        worst = max(worst, float((logits - full[:, t]).abs().max()))
+    return worst, float(full.abs().max())
+
+
+def cross_kv_from_encoder(model, params, cache, src_embeds):
+    """The encoder-decoder's cross K/V computed from its encoder, as the
+    forward's cross-attention computes them."""
+    from repro_torch.models import encdec
+    cfg = model.cfg
+    memory = encdec.encode(params, src_embeds, cfg)
+    B, T = memory.shape[:2]
+    w = params["dec_layers"]["cross_attn"]
+    for key, name in (("cross_k", "wk"), ("cross_v", "wv")):
+        cache[key] = torch.stack([
+            (memory @ w[name][i].to(memory.dtype)).reshape(
+                B, T, cfg.n_kv_heads, cfg.resolved_head_dim).permute(0, 2, 1, 3)
+            for i in range(cfg.n_layers)])
+    return cache
+
+
+def phase_serve_path(device):
+    """Serving: ``repro_torch.launch.serve.main`` at glm4-9b's full width
+    and depth (the README's serving command) under the scoped e5m7 policy;
+    the same parameters through ``Engine`` plain, truncated and shadowed;
+    bit-identity of shadowed, continuous and isolated decoding; decode
+    against the forward; one drift run; then every other family's decode at
+    full width and h2o-danube-1.8b's ring cache past its window. The static
+    quantizer's launches are held to the matched site executions of the
+    ticks run, and no decode step synchronises with the host."""
+    from repro_torch import kernels
+    from repro_torch.artifacts import PolicyArtifact
+    from repro_torch.configs import get_config
+    from repro_torch.core import truncate
+    from repro_torch.core.policy import parse_policy
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, encdec
+    from repro_torch.serving import Engine, ShadowConfig
+
+    # ---- 1. the command line, glm4-9b at full width and depth ------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()           # the serve path starts here
+    with torch.no_grad(), decode_steps_sync_free():
+        eng = serve.main(SERVE_ARGV)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()        # ... and ends here
+    cli_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    model, params, cfg = eng.model, eng.params, eng.model.cfg
+    policy = parse_policy(SERVE_POLICY)
+    done = eng.run()                        # drained: the finished requests
+    tokens = sum(len(r.out_tokens) for r in done.values())
+    with torch.no_grad():
+        per_tick = matched_executions(
+            model.decode_step, policy,
+            (params, model.init_cache(SERVE_BATCH, SERVE_SEQ),
+             torch.zeros(SERVE_BATCH, dtype=torch.int32, device=device)))
+    cli = dict(model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+               head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
+               vocab=cfg.vocab, dtype=cfg.dtype,
+               n_params=model.n_params(), argv=SERVE_ARGV,
+               requests=len(done),
+               statuses=sorted({r.status for r in done.values()}),
+               shadowed_requests=sum(r.shadowed for r in done.values()),
+               tokens=tokens, ticks=eng.ticks,
+               seconds=eng.served_seconds,
+               tokens_per_s=tokens / eng.served_seconds,
+               ms_per_tick=1e3 * eng.served_seconds / eng.ticks,
+               command_seconds=cli_s, cache_sizes=eng.cache_sizes(),
+               matched_site_executions_per_tick=per_tick,
+               launches=counts,
+               peak_memory_gb_with_init=round(peak_gb, 2))
+    emit("serve_path_cli", **cli)
+    check(len(done) == 8 and cli["statuses"] == ["ok"], cli)
+    check(all(len(r.out_tokens) == 16 for r in done.values()), cli)
+    check(cli["cache_sizes"]["decode"] == 1
+          and cli["cache_sizes"]["reset"] is None
+          and cli["cache_sizes"].get("shadow") in (None, 1), cli)
+    check(counts["quantize_em_static"] == eng.ticks * per_tick > 0,
+          "static launches != matched site executions of the ticks run", cli)
+    check(counts["quantize_em_dynamic"] == counts["flash_attention"]
+          == counts["wkv6"] == 0, counts)
+
+    # ---- 2. the same parameters through Engine ---------------------------
+    def engine(batch_size=SERVE_BATCH, **kw):
+        return Engine(model, params, batch_size=batch_size,
+                      max_seq_len=SERVE_SEQ, **kw)
+
+    info = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        tick_ms = {
+            "plain": ms_per_tick(engine(), cfg.vocab),
+            "truncate": ms_per_tick(engine(policy=policy), cfg.vocab),
+            "shadow": ms_per_tick(engine(policy=policy, shadow=ShadowConfig(
+                rate=1.0)), cfg.vocab)}
+        info["serving_peak_memory_gb"] = round(
+            torch.cuda.max_memory_allocated() / 2**30, 2)
+        with decode_steps_sync_free():      # what the check costs a tick
+            tick_ms["truncate_sync_checked"] = ms_per_tick(
+                engine(policy=policy), cfg.vocab)
+        info["ms_per_tick"] = tick_ms
+        info["factor_over_plain"] = {k: v / tick_ms["plain"]
+                                     for k, v in tick_ms.items()}
+
+        r = np.random.RandomState(2)
+        work = [(r.randint(1, cfg.vocab, n), m) for n, m in
+                zip((5, 11, 8, 14, 3, 9), (8, 6, 10, 5, 8, 7))]
+        trunc, _ = serve_tokens(engine(policy=policy), work)
+        shadow_eng = engine(policy=policy, shadow=ShadowConfig(rate=1.0))
+        shadowed, _ = serve_tokens(shadow_eng, work)
+        plain, statuses = serve_tokens(engine(), work)
+        same_batch = [serve_tokens(engine(), [w])[0][0] for w in work[:2]]
+        batch1 = [serve_tokens(engine(batch_size=1), [w])[0][0]
+                  for w in work[:2]]
+        info.update(
+            shadowed_equal_truncated=shadowed == trunc,
+            shadow_cache_size=shadow_eng.cache_sizes()["shadow"],
+            shadow_top3=[[loc, f, m] for loc, f, m in
+                         shadow_eng.serving_report.top(3)],
+            continuous_equal_same_batch_isolation=same_batch == plain[:2],
+            continuous_equal_batch1_isolation=batch1 == plain[:2],
+            truncate_changed_tokens=trunc != plain)
+
+        # batch 1 against lane 0 of a batch of 4 (the other lanes idle, as
+        # an engine feeds them): the same tokens, teacher-forced
+        seq = np.concatenate([work[0][0], plain[0]]).astype(np.int32)
+        c1 = model.init_cache(1, SERVE_SEQ)
+        c4 = model.init_cache(SERVE_BATCH, SERVE_SEQ)
+        b1_diff, b1_bit_equal_steps = 0.0, 0
+        for t in seq:
+            l1, c1 = model.decode_step(params, c1, torch.tensor(
+                [t], dtype=torch.int32, device=device))
+            l4, c4 = model.decode_step(params, c4, torch.tensor(
+                [t, 0, 0, 0], dtype=torch.int32, device=device))
+            b1_diff = max(b1_diff, float((l1[0] - l4[0]).abs().max()))
+            b1_bit_equal_steps += int(torch.equal(l1[0], l4[0]))
+        info.update(batch1_vs_batch4_max_logit_diff=b1_diff,
+                    batch1_vs_batch4_bit_equal_steps=[b1_bit_equal_steps,
+                                                      len(seq)])
+
+        # decode logits of one prompt against the forward at every position
+        prompt = torch.from_numpy(r.randint(1, cfg.vocab, (1, 48)).astype(
+            np.int32)).to(device)
+        worst, scale = decode_against_forward(
+            model, params, {"tokens": prompt}, 48,
+            model.init_cache(1, 48), device)
+        info.update(decode_vs_forward_max_diff=worst,
+                    forward_max_abs_logit=scale)
+
+        # one drift run: an artifact accepted at 1e-7 meets live traffic
+        events = []
+        art = PolicyArtifact(name="glm4-9b-serve", policy=policy,
+                             provenance={"threshold": 1e-7})
+        drift = engine(policy=art, shadow=ShadowConfig(
+            rate=1.0, threshold=1e-6, min_shadow_ticks=2,
+            on_drift=events.append))
+        serve_tokens(drift, work[:1])
+        prov = drift.artifact.provenance.get("guardrail_log") or []
+        info.update(drift_events=len(events),
+                    drift=str(events[0]) if events else None,
+                    provenance_kinds=[e["kind"] for e in prov])
+    emit("serve_path", model=cfg.name, policy=SERVE_POLICY, **info)
+    check(info["shadowed_equal_truncated"], "shadowed != truncated tokens")
+    check(info["shadow_cache_size"] == 1, info)
+    check(info["continuous_equal_same_batch_isolation"],
+          "continuous != isolated decoding at the same batch size")
+    check(statuses == ["ok"] * len(work), statuses)
+    check(worst <= LOGIT_TOL * scale, "decode != forward", worst, scale)
+    check(len(events) == 1 and "drift_detected" in info["provenance_kinds"],
+          info)
+    del eng, shadow_eng, drift, params, model
+    torch.cuda.empty_cache()
+
+    # ---- 3. every other family's decode; the ring cache ------------------
+    for arch, cut, scopes in DECODE_CUTS:
+        fcfg = get_config(arch).replace(**cut)
+        fm = Model(fcfg)
+        fp = fm.init(seed=0)
+        fb = family_batch(fcfg, 2, DECODE_STEPS, device)
+        batch = {k: v for k, v in fb.items() if k not in ("labels",
+                                                          "positions")}
+        if fcfg.family == "encdec":
+            def fresh():
+                c = encdec.init_cache(fcfg, 2, DECODE_SLOTS,
+                                      memory_len=DECODE_STEPS)
+                return cross_kv_from_encoder(fm, fp, c, batch["src_embeds"])
+        else:
+            def fresh():
+                return fm.init_cache(2, DECODE_SLOTS)
+        pol = scoped_policy(scopes, DECODE_FMT)
+        emb = batch["embeds"][:, :1] if "embeds" in batch else None
+        tok = (torch.zeros(2, dtype=torch.int32, device=device)
+               if emb is not None else batch["tokens"][:, 0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            worst, scale = decode_against_forward(fm, fp, batch, DECODE_STEPS,
+                                                  fresh(), device)
+            c0 = fresh()
+            ring = (c0["layers"]["kv"]["k"].shape[3]
+                    if fcfg.attn_type == "hymba" else None)
+            want = matched_executions(
+                lambda *a: fm.decode_step(*a, embeds=emb), pol, (fp, c0, tok))
+            w = truncate(fm.decode_step, pol)
+            (got, _), launched = launches_of(
+                lambda: sync_free(lambda: w(fp, c0, tok, embeds=emb)))
+            ref, _ = truncate(fm.decode_step, pol, impl="ref")(
+                fp, c0, tok, embeds=emb)
+            plain, _ = fm.decode_step(fp, c0, tok, embeds=emb)
+        fam = dict(model=arch, cut=cut, scopes=list(scopes), fmt=DECODE_FMT,
+                   n_params=fm.n_params(), batch=2, steps=DECODE_STEPS,
+                   cache_slots=DECODE_SLOTS, ring_slots=ring,
+                   decode_vs_forward_max_diff=worst,
+                   forward_max_abs_logit=scale,
+                   truncate_bit_equal_to_ref=bit_mismatches(got, ref) == 0,
+                   truncate_changed_logits=not torch.equal(got, plain),
+                   static_launches=launched["quantize_em_static"],
+                   matched_site_executions=want,
+                   peak_memory_gb=round(
+                       torch.cuda.max_memory_allocated() / 2**30, 2))
+        emit("serve_path_family", **fam)
+        check(worst <= LOGIT_TOL * scale, arch, "decode != forward", fam)
+        check(fam["truncate_bit_equal_to_ref"], arch, fam)
+        check(ring is None or ring == fcfg.sliding_window < DECODE_SLOTS,
+              arch, "no ring cache", fam)
+        check(fam["static_launches"] == want > 0, arch, fam)
+        check(bool(torch.isfinite(got).all())
+              and fam["truncate_changed_logits"], arch, fam)
+        del fp, fb, batch, w
+        torch.cuda.empty_cache()
+
+    dcfg = get_config("h2o-danube-1.8b").replace(n_layers=2)
+    dm = Model(dcfg)
+    dp = dm.init(seed=0)
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, dcfg.vocab, (1, RING_FORWARD)).astype(np.int32)).to(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        # causal: position RING_STEPS - 1 sees no later token
+        want_last = dm.forward(dp, {"tokens": toks})[:, RING_STEPS - 1]
+        cache = dm.init_cache(1, RING_STEPS)
+        ring = cache["layers"]["k"].shape[3]
+        for t in range(RING_STEPS):
+            logits, cache = dm.decode_step(dp, cache, toks[:, t])
+        torch.cuda.synchronize()
+    ring_info = dict(model=dcfg.name, n_layers=dcfg.n_layers,
+                     window=dcfg.sliding_window, ring_slots=ring,
+                     steps=RING_STEPS,
+                     last_logits_max_diff=float(
+                         (logits - want_last).abs().max()),
+                     forward_max_abs_logit=float(want_last.abs().max()),
+                     seconds=time.perf_counter() - t0)
+    emit("serve_path_ring", **ring_info)
+    check(ring == dcfg.sliding_window < RING_STEPS, ring_info)
+    check(ring_info["last_logits_max_diff"]
+          <= LOGIT_TOL * ring_info["forward_max_abs_logit"], ring_info)
     return counts
 
 
@@ -2123,14 +2516,49 @@ def phase_fused_times(device, seq, wkv_seq):
     return rows
 
 
-def phase_profile(device, layers, seq):
-    """Where a forward's time goes: device time by kernel name for the plain
-    forward, one swept forward (every float result a site, e8m7 table) and
-    one ``memtrace`` forward under the same policy. Not part of the default
-    run: ``--phases profile``."""
+def profile_runs(phase, runs, reps=1, **extra):
+    """Device time by kernel name of each run in ``runs`` (name -> a call
+    that ends in a host read-back or is synchronised here), its wall time
+    unprofiled and under the profiler, and the device's busy time: one JSON
+    line ``phase`` per run. Each run is called ``reps`` times inside the
+    profiled window."""
     from torch.profiler import ProfilerActivity, profile
+    for name, fn in runs.items():
+        fn()                              # warm-up: a wrapper's first walk
+        wall_ms = timed(fn)               # unprofiled
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / reps
+        # device-side events only: host-side op events carry their
+        # kernels' time a second time
+        rows = [(e.key, e.self_device_time_total / 1e3 / reps, e.count / reps)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        emit(phase, run=name, **extra, wall_ms=wall_ms,
+             wall_ms_under_profiler=profiled_ms, device_busy_ms=busy,
+             device_idle_share_under_profiler=1 - busy / profiled_ms,
+             n_device_kernels=sum(r[2] for r in rows),
+             top=[dict(kernel=k[:80], ms=round(ms, 3), calls=c)
+                  for k, ms, c in rows[:14]])
+
+
+def phase_profile(device, layers, seq):
+    """Where the time goes: device time by kernel name for the plain
+    forward, one swept forward (every float result a site, e8m7 table) and
+    one ``memtrace`` forward under the same policy; then one glm4-9b decode
+    tick at full width and depth (4 slots at cursor 32, the logits read
+    back) plain, under ``truncate`` scoped to ``**/mlp`` and under
+    ``memtrace``. Not part of the default run: ``--phases profile``."""
     from repro_torch.configs import get_config
-    from repro_torch.core import TruncationPolicy, memtrace, truncate_sweep
+    from repro_torch.core import (TruncationPolicy, memtrace, truncate,
+                                  truncate_sweep)
+    from repro_torch.core.policy import parse_policy
     from repro_torch.models import Model
 
     cfg = get_config("h2o-danube-1.8b")
@@ -2144,30 +2572,50 @@ def phase_profile(device, layers, seq):
         handle = truncate_sweep(model.loss, everywhere)(params, batch)
         table = handle.device_table(handle.table(everywhere))
         traced = memtrace(model.loss, everywhere)
-        runs = {"plain": lambda: model.loss(params, batch),
-                "sweep_e8m7": lambda: handle(table),
-                "memtrace_e8m7": lambda: traced(params, batch)}
-        for name, fn in runs.items():
-            wall_ms = timed(fn, reps=1)       # the first call, unprofiled
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            profiled_ms = (time.perf_counter() - t0) * 1e3
-            # device-side events only: host-side op events carry their
-            # kernels' time a second time
-            rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                    for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-            rows.sort(key=lambda r: -r[1])
-            busy = sum(r[1] for r in rows)
-            emit("profile", run=name, n_layers=cfg.n_layers,
-                 wall_ms=wall_ms, wall_ms_under_profiler=profiled_ms,
-                 device_busy_ms=busy,
-                 n_device_kernels=sum(r[2] for r in rows),
-                 top=[dict(kernel=k[:80], ms=round(ms, 2), calls=c)
-                      for k, ms, c in rows[:14]])
+        profile_runs("profile", {
+            "plain": lambda: model.loss(params, batch),
+            "sweep_e8m7": lambda: handle(table),
+            "memtrace_e8m7": lambda: traced(params, batch)},
+            n_layers=cfg.n_layers)
+    del params, handle, table, traced
+    torch.cuda.empty_cache()
+
+    cfg = get_config("glm4-9b")
+    model = Model(cfg)
+    params = model.init(seed=0)
+    policy = parse_policy(SERVE_POLICY)
+    tokens = torch.arange(1, SERVE_BATCH + 1, dtype=torch.int32,
+                          device=device)
+    with torch.no_grad():
+        cache = model.init_cache(SERVE_BATCH, SERVE_SEQ)
+        cache["pos"].fill_(32)
+        calls = aten_calls(lambda: model.decode_step(params, cache, tokens))
+        lossy = truncate(model.decode_step, policy)
+        shadowed = memtrace(model.decode_step, policy)
+        profile_runs("profile_decode", {
+            "plain": lambda: model.decode_step(
+                params, cache, tokens)[0].cpu(),
+            "truncate_mlp_e5m7": lambda: lossy(
+                params, cache, tokens)[0].cpu(),
+            "memtrace_mlp_e5m7": lambda: shadowed(
+                params, cache, tokens)[0][0].cpu()},
+            reps=5, model=cfg.name, n_layers=cfg.n_layers,
+            batch=SERVE_BATCH, max_seq=SERVE_SEQ, aten_calls_plain=calls)
+
+
+def aten_calls(fn) -> int:
+    """The aten calls ``fn()`` dispatches (what the walk intercepts)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
 
 
 def phase_isa():
@@ -2213,7 +2661,8 @@ def main():
                                         "mem_path,traj_path,fused_path,"
                                         "small_ref,times,reconcile,"
                                         "search_path,apps_path,"
-                                        "artifact_path,models_path")
+                                        "artifact_path,models_path,"
+                                        "serve_path")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2244,7 +2693,8 @@ def main():
                                          "quantize_em_dynamic")})
         by_path["main_path"] = c
     if "mem_path" in phases:
-        by_path["mem_path"] = phase_mem_path(device, args.layers, args.seq)
+        by_path["mem_path"] = phase_mem_path(
+            device, args.layers or MEM_LAYERS, args.seq)
     if "traj_path" in phases:
         by_path["traj_path"] = phase_traj_path(device, args.layers, args.seq)
     if "fused_path" in phases:
@@ -2261,6 +2711,8 @@ def main():
             device, args.layers or SEARCH_LAYERS, args.seq)
     if "models_path" in phases:
         by_path["models_path"] = phase_models_path(device, args.layers)
+    if "serve_path" in phases:
+        by_path["serve_path"] = phase_serve_path(device)
     if "small_ref" in phases:
         phase_small_ref(device)
     if "reconcile" in phases:
@@ -2322,7 +2774,8 @@ def main():
                     "artifact_path": ("quantize_em_static",
                                       "quantize_em_dynamic"),
                     "models_path": ("quantize_em_static",
-                                    "quantize_em_dynamic")}
+                                    "quantize_em_dynamic"),
+                    "serve_path": ("quantize_em_static",)}
     for path, names in path_kernels.items():
         if path in phases:
             check(all(by_path[path][n] > 0 for n in names), path, summary)

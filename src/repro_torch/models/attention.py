@@ -8,8 +8,13 @@ code in the reference package's models too. It deliberately does not call
 inside. KV heads are never materialized to Hq (grouped einsum). The
 ``(B, H, S, D)`` layout is the reference's.
 
-Decode paths (one token against a cache) belong to the serving slice and
-are not ported yet.
+Decode paths attend one new token against a pre-allocated cache; MLA
+decode uses the absorbed low-rank form so the cache stays (kv_lora +
+rope_dim) wide. A decode path opens none of the forward's ``qkv`` / ``mix``
+/ ``proj`` scopes: it runs under its caller's scope, as the reference's
+does. The cache is updated as the reference updates it, by selecting the
+new row where a one-hot slot mask is true (``torch.where``, a structural
+op to a policy), never by writing into the old cache in place.
 """
 from __future__ import annotations
 
@@ -108,6 +113,58 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return out.to(v.dtype)
 
 
+def _cursors(pos, B: int, device) -> torch.Tensor:
+    """``pos`` (a Python int, a scalar or a (B,) tensor) as a (B,) int32
+    vector of per-slot cursors. A Python int is filled in on the device:
+    no copy from the host, so no host synchronisation."""
+    if isinstance(pos, int):
+        return torch.full((B,), pos, dtype=torch.int32, device=device)
+    return pos.to(torch.int32).expand(B)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
+                     scale: Optional[float] = None, ring: bool = False):
+    """One-token attention. q: (B, Hq, Dk); caches: (B, Hkv, S, D*);
+    pos: int32 scalar or (B,) vector — per-slot count of valid cache entries
+    (the new token's index in slot b is pos[b]-1 after the cache update).
+    A scalar means every batch lane sits at the same cursor; the serving
+    engine passes a ragged (B,) vector so slots decode independently.
+
+    ``ring=True``: the cache is a ring buffer of size S == window; slot s
+    holds the token at position pos - ((pos - s) mod S) — negative means the
+    slot hasn't been written yet (masked). No separate window mask needed:
+    the ring IS the window."""
+    B, Hq, Dk = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dk)
+    pos_b = _cursors(pos, B, q.device)
+
+    qg = q.reshape(B, Hkv, G, Dk)
+    s = common.einsum("bhgd,bhkd->bhgk", qg.to(torch.float32),
+                      k_cache.to(torch.float32)) * scale
+    idx = torch.arange(S, device=q.device)[None, None, None, :]
+    cur = pos_b[:, None, None, None]
+    if ring:
+        last = cur - 1  # index of the newest token (already inserted)
+        slot_pos = last - torch.remainder(last - idx, S)
+        valid = slot_pos >= 0
+    else:
+        valid = idx < cur
+        if window is not None:
+            valid = valid & (idx >= (cur - window))
+    s = torch.where(valid, s, NEG_INF)
+    p = common.softmax(s, dim=-1)
+    out = common.einsum("bhgk,bhkd->bhgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, Hq, -1).to(v_cache.dtype)
+
+
+def _write_slot(cache, new, onehot):
+    """The cache with ``new`` in the slots ``onehot`` marks: a select, as the
+    reference's ``jnp.where`` is, so the input cache is left unchanged."""
+    return torch.where(onehot, new.to(cache.dtype), cache)
+
+
 # ---------------------------------------------------------------------------
 # GQA block
 # ---------------------------------------------------------------------------
@@ -169,6 +226,44 @@ def gqa_forward(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
         o = o.permute(0, 2, 1, 3).reshape(B, S, -1)
         out = o @ p["wo"].to(x.dtype)
     return out, (k, v)
+
+
+def gqa_decode(p, x1, cache, pos, cfg: ArchConfig, *,
+               window: Optional[int] = None, positions3=None):
+    """x1: (B, 1, d); cache: dict(k=(B,Hkv,S,hd), v=...). pos: scalar or
+    (B,) count of tokens already in each slot's cache (ragged decode writes
+    each lane at its own cursor). When the cache was allocated ring-sized
+    (S == window < requested seq_len) the slot is pos mod S; a non-ring
+    cursor past the cache end simply doesn't write (dead serving lanes).
+    Returns ``(out (B,1,d), new cache)``."""
+    B = x1.shape[0]
+    S_cache = cache["k"].shape[2]
+    ring = window is not None and S_cache == window
+    pos_b = _cursors(pos, B, x1.device)
+    if cfg.rope_type == "mrope" and positions3 is None:
+        positions3 = pos_b[None, :, None].expand(3, B, 1)
+    positions = pos_b[:, None]
+    q, k, v = _project_qkv(
+        p, x1, cfg, positions3 if cfg.rope_type == "mrope" else positions)
+    slot = torch.remainder(pos_b, S_cache) if ring else pos_b
+    onehot = (torch.arange(S_cache, device=x1.device)[None, :]
+              == slot[:, None])[:, None, :, None]           # (B,1,S,1)
+    k_cache = _write_slot(cache["k"], k, onehot)
+    v_cache = _write_slot(cache["v"], v, onehot)
+    o = decode_attention(q[:, :, 0], k_cache, v_cache, pos_b + 1,
+                         window=None if ring else window, ring=ring)
+    out = o.reshape(B, 1, -1) @ p["wo"].to(x1.dtype)
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def gqa_init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype,
+                   device, window: Optional[int] = None):
+    """``window``: allocate a ring buffer of that size instead of the full
+    sequence (sliding-window layers never need more)."""
+    S = min(seq_len, window) if window else seq_len
+    shape = (batch, cfg.n_kv_heads, S, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -238,3 +333,51 @@ def mla_forward(p, x, cfg: ArchConfig, *, positions):
         o = o.permute(0, 2, 1, 3).reshape(B, S, H * m.v_head_dim)
         out = o @ p["wo"].to(x.dtype)
     return out, (c_kv, k_rope)
+
+
+def mla_decode(p, x1, cache, pos, cfg: ArchConfig):
+    """Absorbed-form decode: the cache holds only (c_kv, k_rope). pos:
+    scalar or (B,) per-slot cursor, matching ``gqa_decode``."""
+    m = cfg.mla
+    B = x1.shape[0]
+    H = cfg.n_heads
+    pos_b = _cursors(pos, B, x1.device)
+    positions = pos_b[:, None]
+    q_nope, q_rope = _mla_q(p, x1, cfg, positions)     # (B,H,1,dn),(B,H,1,dr)
+    c_new, kr_new = _mla_latent(p, x1, cfg, positions)
+    S = cache["c_kv"].shape[1]
+    onehot = (torch.arange(S, device=x1.device)[None, :]
+              == pos_b[:, None])[..., None]                 # (B,S,1)
+    c_cache = _write_slot(cache["c_kv"], c_new, onehot)
+    r_cache = _write_slot(cache["k_rope"], kr_new, onehot)
+
+    # kv_up columns interleave [nope | v] per head
+    w_up = p["kv_up"].reshape(m.kv_lora, H, m.nope_head_dim + m.v_head_dim)
+    w_uk = w_up[..., :m.nope_head_dim]
+    w_uv = w_up[..., m.nope_head_dim:]
+    f32 = torch.float32
+    # absorb W_uk into q: (B,H,dn) x (kv_lora,H,dn) -> (B,H,kv_lora)
+    q_lat = common.einsum("bhd,lhd->bhl", q_nope[:, :, 0].to(f32),
+                          w_uk.to(f32))
+    s = common.einsum("bhl,bsl->bhs", q_lat, c_cache.to(f32))
+    s = s + common.einsum("bhd,bsd->bhs", q_rope[:, :, 0].to(f32),
+                          r_cache.to(f32))
+    s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    idx = torch.arange(S, device=x1.device)
+    s = torch.where(idx[None, None, :] <= pos_b[:, None, None], s, NEG_INF)
+    pr = common.softmax(s, dim=-1)
+    ctx_lat = common.einsum("bhs,bsl->bhl", pr, c_cache.to(f32))
+    o = common.einsum("bhl,lhd->bhd", ctx_lat, w_uv.to(f32))
+    out = (o.reshape(B, 1, H * m.v_head_dim).to(x1.dtype)
+           @ p["wo"].to(x1.dtype))
+    return out, {"c_kv": c_cache, "k_rope": r_cache}
+
+
+def mla_init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype, device):
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, seq_len, m.kv_lora), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, seq_len, m.rope_head_dim), dtype=dtype,
+                              device=device),
+    }

@@ -10,21 +10,29 @@ are the reference's: ``enc_layer/self_attn``, ``enc_norm``, ``embed``,
 of the reference's two scans, so one trajectory step each (encoder layers
 first), and each stack shares one set of sites.
 
-Decode (a growing self-attention cache against a fixed cross-attention
-memory) belongs to the serving slice and is not ported yet.
+Decode grows a self-attention cache against a fixed cross-attention
+memory (per-layer cross K/V in the cache, computed from the encoder's
+output by the caller, zeros otherwise). As in the reference, the decode
+self-attention opens no ``self_attn`` scope and the logits no ``logits``
+scope: only ``embed``, ``dec_layer``, ``dec_layer/cross_attn`` and
+``final_norm``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.interpreter import loop_body, scope
 from repro_torch.models import attention
-from repro_torch.models.common import ParamDef, torch_dtype
+from repro_torch.models.common import ParamDef, resolve_device, torch_dtype
 from repro_torch.models.transformer import (
-    _DECODE, _positions, _tree_index, apply_norm, mlp_forward, mlp_param_defs,
-    norm_defs, stacked, token_nll,
+    _positions, _stack_caches, _tree_index, apply_norm, mlp_forward,
+    mlp_param_defs, norm_defs, stacked, token_nll,
 )
+
+# fixed source length for decode cells (prompt memory)
+CROSS_MEMORY_LEN = 4096
 
 
 def _enc_layer_defs(cfg: ArchConfig) -> dict:
@@ -100,18 +108,33 @@ def _cross_attend(p, x, memory, cfg: ArchConfig):
     return o @ p["wo"].to(x.dtype)
 
 
-def _dec_layer(cfg, p_l, x, memory, positions):
+def _dec_layer(cfg, p_l, x, memory, positions, mix_state=None,
+               decode=False, pos=None, cross_kv=None):
+    """One decoder layer. Returns ``(x, new self-attention cache)``."""
     h = apply_norm(p_l["norm1"], x, cfg)
-    with scope("self_attn"):
-        y, _ = attention.gqa_forward(p_l["self_attn"], h, cfg,
-                                     positions=positions, causal=True)
+    if decode:
+        y, new_kv = attention.gqa_decode(p_l["self_attn"], h, mix_state, pos,
+                                         cfg)
+    else:
+        with scope("self_attn"):
+            y, _ = attention.gqa_forward(p_l["self_attn"], h, cfg,
+                                         positions=positions, causal=True)
+        new_kv = mix_state
     x = x + y
     h = _norm_again("norm_x", p_l, x, cfg)
     with scope("cross_attn"):
-        y = _cross_attend(p_l["cross_attn"], h, memory, cfg)
+        if decode:
+            k, v = cross_kv
+            B = h.shape[0]
+            q = (h[:, 0] @ p_l["cross_attn"]["wq"].to(h.dtype)).reshape(
+                B, cfg.n_heads, cfg.resolved_head_dim)
+            o = attention.decode_attention(q, k, v, k.shape[2])
+            y = o.reshape(B, 1, -1) @ p_l["cross_attn"]["wo"].to(h.dtype)
+        else:
+            y = _cross_attend(p_l["cross_attn"], h, memory, cfg)
     x = x + y
     h = _norm_again("norm2", p_l, x, cfg)
-    return x + mlp_forward(p_l["mlp"], h, cfg)
+    return x + mlp_forward(p_l["mlp"], h, cfg), new_kv
 
 
 def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
@@ -123,8 +146,8 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
     positions = _positions({}, cfg, S, B, x.device)
     for i in range(cfg.n_layers):
         with scope("dec_layer", loop=True):
-            x = _dec_layer(cfg, _tree_index(params["dec_layers"], i), x,
-                           memory, positions)
+            x, _ = _dec_layer(cfg, _tree_index(params["dec_layers"], i), x,
+                              memory, positions)
     if last_only:
         x = x[:, -1:]
     with scope("final_norm"):
@@ -139,9 +162,42 @@ def loss_fn(params, batch, cfg: ArchConfig):
         return token_nll(logits, batch["labels"])
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int):
-    raise NotImplementedError(_DECODE)
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
+               memory_len: int = CROSS_MEMORY_LEN, *, device=None):
+    """Decoder self-KV cache + per-layer cross K/V (computed from the
+    encoder's output by the caller; zeros here), on ``device`` (``None`` =
+    the CUDA device)."""
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    self_kv = attention.gqa_init_cache(cfg, batch, seq_len, dtype, device)
+    cross_shape = (cfg.n_layers, batch, cfg.n_kv_heads, memory_len,
+                   cfg.resolved_head_dim)
+    return {
+        "layers": _stack_caches(self_kv, cfg.n_layers),
+        "cross_k": torch.zeros(cross_shape, dtype=dtype, device=device),
+        "cross_v": torch.zeros(cross_shape, dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
 
 
 def decode_step(params, cache, tokens, cfg: ArchConfig):
-    raise NotImplementedError(_DECODE)
+    """One decode step of the decoder: tokens (B,) int32 -> ``(logits (B,
+    vocab), new cache)``; the input cache is left unchanged."""
+    pos = cache["pos"]
+    with scope("embed"):
+        x = params["embed"].to(torch_dtype(cfg.dtype))[tokens][:, None]
+    outs = []
+    for i in range(cfg.n_layers):
+        with scope("dec_layer", loop=True):
+            x, new_kv = _dec_layer(
+                cfg, _tree_index(params["dec_layers"], i), x, None, None,
+                mix_state=_tree_index(cache["layers"], i), decode=True,
+                pos=pos, cross_kv=(cache["cross_k"][i], cache["cross_v"][i]))
+        outs.append(new_kv)
+    with scope("final_norm"):
+        x = apply_norm(params["final_norm"], x, cfg)
+    logits = x[:, 0].to(torch.float32) @ params["lm_head"].to(torch.float32)
+    new_cache = dict(cache, pos=pos + 1,
+                     layers=pytree.tree_map(lambda *ts: torch.stack(ts),
+                                            *outs))
+    return logits, new_cache

@@ -1,4 +1,5 @@
-"""Model facade: binds an ArchConfig to init / loss / forward / prefill."""
+"""Model facade: binds an ArchConfig to init / loss / forward / prefill /
+decode."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -63,10 +64,15 @@ class Model:
         return self._mod.forward(params, batch, self.cfg,
                                  last_only=True)[:, 0]
 
-    def init_cache(self, batch_size: int, seq_len: int):
-        return self._mod.init_cache(self.cfg, batch_size, seq_len)
+    def init_cache(self, batch_size: int, seq_len: int, *, device=None):
+        """The decode cache for ``batch_size`` slots of ``seq_len`` tokens,
+        on ``device`` (``None`` = the CUDA device; raises if there is
+        none)."""
+        return self._mod.init_cache(self.cfg, batch_size, seq_len,
+                                    device=device)
 
     def decode_step(self, params, cache, tokens, embeds=None):
+        """One token for every slot: ``(logits (B, vocab), new cache)``."""
         if self.cfg.family == "encdec":
             return encdec.decode_step(params, cache, tokens, self.cfg)
         return transformer.decode_step(params, cache, tokens, self.cfg,

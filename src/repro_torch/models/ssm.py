@@ -13,8 +13,10 @@ reference's model does not call its kernel either, and the site lists must
 stay the reference's. Every step is written from the reference's
 elementary operations, in its order, conversions included.
 
-Decode (one token against the carried state) belongs to the serving slice
-and is not ported yet.
+Decode carries O(1)-per-token state: Mamba's last ``conv_width - 1``
+inputs and its (B, di, N) state, RWKV-6's token-shift rows and its
+(B, H, hd, hd) state. Mamba's decode is one step of the recurrence; RWKV-6's
+is ``_rwkv6_mix`` at S = 1 (a chunk of one token), as in the reference.
 """
 from __future__ import annotations
 
@@ -59,8 +61,11 @@ def _chunks(S: int):
     return c, S // c
 
 
-def _mamba_core(p, xz, cfg: ArchConfig, ssm_state):
-    """xz: (B, S, 2*di). Returns (y (B,S,di), conv_state, ssm_state)."""
+def _mamba_core(p, xz, cfg: ArchConfig, conv_state, ssm_state, *,
+                decode: bool):
+    """xz: (B, S, 2*di). Returns (y (B,S,di), conv_state, ssm_state).
+    ``decode``: S = 1, and the convolution reads the carried
+    ``conv_state`` (the last W-1 inputs) instead of zero padding."""
     sc = cfg.ssm
     di = sc.expand * cfg.d_model
     dt_rank = sc.dt_rank or -(-cfg.d_model // 16)
@@ -69,10 +74,17 @@ def _mamba_core(p, xz, cfg: ArchConfig, ssm_state):
 
     # causal depthwise conv (width W): the state carries the last W-1 inputs
     W = sc.conv_width
-    pad = torch.zeros((B_, W - 1, di), dtype=x.dtype, device=x.device)
-    hist = torch.cat([pad, x], dim=1)
-    new_conv_state = hist[:, S:]                                # last W-1
-    xc = sum(hist[:, i:i + S] * p["conv_w"][i].to(x.dtype) for i in range(W))
+    if decode:
+        hist = torch.cat([conv_state, x], dim=1)                # (B, W, di)
+        new_conv_state = hist[:, 1:]
+        xc = common.einsum("bwd,wd->bd", hist,
+                           p["conv_w"].to(x.dtype))[:, None]
+    else:
+        pad = torch.zeros((B_, W - 1, di), dtype=x.dtype, device=x.device)
+        hist = torch.cat([pad, x], dim=1)
+        new_conv_state = hist[:, S:]                            # last W-1
+        xc = sum(hist[:, i:i + S] * p["conv_w"][i].to(x.dtype)
+                 for i in range(W))
     xc = common.silu(xc + p["conv_b"].to(x.dtype))
 
     proj = xc @ p["x_proj"].to(x.dtype)                         # (B,S,r+2N)
@@ -82,24 +94,36 @@ def _mamba_core(p, xz, cfg: ArchConfig, ssm_state):
                          + p["dt_bias"].to(x.dtype))            # (B,S,di)
     A = -torch.exp(p["a_log"].to(_F32))                         # (di,N)
 
-    # chunked over the sequence, token by token inside a chunk
-    c, nch = _chunks(S)
-    h = ssm_state.to(_F32)
-    ys = []
-    for ci in range(nch):
-        with loop_body("chunk"):
-            sl = slice(ci * c, (ci + 1) * c)
-            dt_c, xc_c, b_c, cc_c = dt[:, sl], xc[:, sl], Bc[:, sl], Cc[:, sl]
-            da = torch.exp(dt_c.to(_F32)[..., None] * A)        # (B,c,di,N)
-            dbx = (dt_c.to(_F32) * xc_c.to(_F32))[..., None] \
-                * b_c.to(_F32)[..., None, :]
-            cc_f = cc_c.to(_F32)
-            for t in range(c):
-                with loop_body("step"):
-                    h = da[:, t] * h + dbx[:, t]                # (B,di,N)
-                    ys.append(common.einsum("bdn,bn->bd", h, cc_f[:, t]))
-    ssm_state = h
-    y = torch.stack(ys, dim=1).to(x.dtype)                      # (B,S,di)
+    if decode:
+        # one step of the recurrence
+        da = torch.exp(dt.to(_F32)[..., None] * A)              # (B,1,di,N)
+        db_x = (dt.to(_F32) * xc.to(_F32))[..., None] \
+            * Bc.to(_F32)[..., None, :]
+        h = ssm_state.to(_F32)
+        c_t = Cc.to(_F32)[:, 0]
+        ssm_state = da[:, 0] * h + db_x[:, 0]                   # (B,di,N)
+        y = common.einsum("bdn,bn->bd", ssm_state, c_t)[:, None].to(x.dtype)
+    else:
+        # chunked over the sequence, token by token inside a chunk
+        c, nch = _chunks(S)
+        h = ssm_state.to(_F32)
+        ys = []
+        for ci in range(nch):
+            with loop_body("chunk"):
+                sl = slice(ci * c, (ci + 1) * c)
+                dt_c, xc_c = dt[:, sl], xc[:, sl]
+                b_c, cc_c = Bc[:, sl], Cc[:, sl]
+                da = torch.exp(dt_c.to(_F32)[..., None] * A)    # (B,c,di,N)
+                dbx = (dt_c.to(_F32) * xc_c.to(_F32))[..., None] \
+                    * b_c.to(_F32)[..., None, :]
+                cc_f = cc_c.to(_F32)
+                for t in range(c):
+                    with loop_body("step"):
+                        h = da[:, t] * h + dbx[:, t]            # (B,di,N)
+                        ys.append(common.einsum("bdn,bn->bd", h,
+                                                cc_f[:, t]))
+        ssm_state = h
+        y = torch.stack(ys, dim=1).to(x.dtype)                  # (B,S,di)
 
     y = y + xc * p["d_skip"].to(x.dtype)
     y = y * common.silu(z)
@@ -113,9 +137,30 @@ def mamba_forward(p, x, cfg: ArchConfig):
     B = x.shape[0]
     xz = x @ p["in_proj"].to(x.dtype)
     ssm0 = torch.zeros((B, di, sc.state_dim), dtype=_F32, device=x.device)
-    y, conv_state, ssm_state = _mamba_core(p, xz, cfg, ssm0)
+    y, conv_state, ssm_state = _mamba_core(p, xz, cfg, None, ssm0,
+                                           decode=False)
     out = y @ p["out_proj"].to(x.dtype)
     return out, {"conv": conv_state, "ssm": ssm_state}
+
+
+def mamba_decode(p, x1, cache, cfg: ArchConfig):
+    """One token: x1 (B,1,d), cache {conv (B,W-1,di), ssm (B,di,N) f32}."""
+    xz = x1 @ p["in_proj"].to(x1.dtype)
+    y, conv_state, ssm_state = _mamba_core(
+        p, xz, cfg, cache["conv"], cache["ssm"], decode=True)
+    out = y @ p["out_proj"].to(x1.dtype)
+    return out, {"conv": conv_state, "ssm": ssm_state}
+
+
+def mamba_init_cache(cfg: ArchConfig, batch: int, dtype, device):
+    sc = cfg.ssm
+    di = sc.expand * cfg.d_model
+    return {
+        "conv": torch.zeros((batch, sc.conv_width - 1, di), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, di, sc.state_dim), dtype=_F32,
+                           device=device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -218,3 +263,14 @@ def rwkv6_channel_mix(p, x, x_prev, cfg: ArchConfig):
     k = common.square(common.relu(xk @ p["wk"].to(x.dtype)))
     kv = k @ p["wv"].to(x.dtype)
     return common.sigmoid(xr @ p["wr"].to(x.dtype)) * kv, x[:, -1:]
+
+
+def rwkv6_init_state(cfg: ArchConfig, batch: int, dtype, device):
+    d = cfg.d_model
+    H, hd = _heads(cfg, d)
+    return {
+        "tm_state": torch.zeros((batch, H, hd, hd), dtype=_F32,
+                                device=device),
+        "tm_shift": torch.zeros((batch, 1, d), dtype=dtype, device=device),
+        "cm_shift": torch.zeros((batch, 1, d), dtype=dtype, device=device),
+    }

@@ -27,8 +27,15 @@ sites; without ``remat`` each call is inlined with sites of its own, and
 here each runs in a one-trip frame of its own. Without ``scan_layers`` the
 scopes are ``layer0``, ``layer1``, … and the sites distinct.
 
-Decode and its caches belong to the serving slice: ``init_cache`` and
-``decode_step`` raise.
+**Decode** (``init_cache``, ``decode_step``) keeps the reference's scopes,
+which are not the forward's: every stacked layer runs under ``layer`` (also
+without ``scan_layers``, and hymba's global layers too), the attention,
+Mamba and MLA decode paths open no scope of their own (no ``attn/...``, no
+``mamba``), and ``embed``, ``final_norm`` and ``logits`` stay. Sites follow
+the reference's traced program: a scan segment is one body (its layers
+share sites, one trajectory step each), and each segment, each unrolled
+global layer and, without ``scan_layers``, each layer is inlined code with
+sites of its own (a one-trip frame here).
 """
 from __future__ import annotations
 
@@ -37,16 +44,15 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.interpreter import loop_body, scope
 from repro_torch.models import attention, moe as moe_mod, ssm
 from repro_torch.models.common import (
-    ParamDef, ACTIVATIONS, rmsnorm, layernorm, map_defs, torch_dtype,
+    ParamDef, ACTIVATIONS, rmsnorm, layernorm, map_defs, resolve_device,
+    torch_dtype,
 )
-
-_DECODE = ("decode and its caches belong to the serving slice, which is not "
-           "ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -123,39 +129,59 @@ def layer_param_defs(cfg: ArchConfig, kind: str) -> dict:
     return defs
 
 
-def _seq_mix(cfg: ArchConfig, p, x, positions, is_global):
-    """The sequence-mixing block. ``is_global=True`` lifts the sliding
-    window (global-attention layers run as their own unrolled segments, so
-    the window stays static and the flash path skips out-of-window KV
-    blocks)."""
+def _seq_mix(cfg: ArchConfig, p, x, positions, is_global, mix_state,
+             decode: bool, pos):
+    """The sequence-mixing block. Returns ``(y, new_mix_state)``.
+    ``is_global=True`` lifts the sliding window (global-attention layers run
+    as their own unrolled segments, so the window stays static and the flash
+    path skips out-of-window KV blocks). ``decode``: one token against
+    ``mix_state`` (the layer's cache) at the per-slot cursors ``pos``."""
     if cfg.attn_type == "gqa":
         window = None if is_global else cfg.sliding_window
+        if decode:
+            return attention.gqa_decode(p["attn"], x, mix_state, pos, cfg,
+                                        window=window)
         with scope("attn"):
             y, _ = attention.gqa_forward(p["attn"], x, cfg,
                                          positions=positions, window=window)
-        return y
+        return y, mix_state
 
     if cfg.attn_type == "mla":
+        if decode:
+            return attention.mla_decode(p["attn"], x, mix_state, pos, cfg)
         with scope("attn"):
             y, _ = attention.mla_forward(p["attn"], x, cfg,
                                          positions=positions)
-        return y
+        return y, mix_state
 
     if cfg.attn_type == "hymba":
         window = None if is_global else cfg.sliding_window
-        with scope("attn"):
-            ya, _ = attention.gqa_forward(p["attn"], x, cfg,
-                                          positions=positions, window=window)
-        with scope("mamba"):
-            ym, _ = ssm.mamba_forward(p["mamba"], x, cfg)
+        if decode:
+            ya, kv = attention.gqa_decode(p["attn"], x, mix_state["kv"], pos,
+                                          cfg, window=window)
+            ym, ms = ssm.mamba_decode(p["mamba"], x, mix_state["mamba"], cfg)
+            new_state = {"kv": kv, "mamba": ms}
+        else:
+            with scope("attn"):
+                ya, _ = attention.gqa_forward(p["attn"], x, cfg,
+                                              positions=positions,
+                                              window=window)
+            with scope("mamba"):
+                ym, _ = ssm.mamba_forward(p["mamba"], x, cfg)
+            new_state = mix_state
         ya = rmsnorm(ya, p["branch_norm_attn"], cfg.norm_eps)
         with loop_body("branch_norm_ssm", once=True):   # sites of its own
             ym = rmsnorm(ym, p["branch_norm_ssm"], cfg.norm_eps)
         beta = p["branch_beta"].to(x.dtype)
-        return 0.5 * (beta[0] * ya + beta[1] * ym)
+        return 0.5 * (beta[0] * ya + beta[1] * ym), new_state
 
     if cfg.attn_type == "rwkv6":
         with scope("time_mix"):
+            if decode:
+                y, x_last, s = ssm._rwkv6_mix(
+                    p["time_mix"], x, mix_state["tm_shift"], cfg,
+                    mix_state["tm_state"])
+                return y, dict(mix_state, tm_shift=x_last, tm_state=s)
             B = x.shape[0]
             x_prev = torch.zeros((B, 1, x.shape[-1]), dtype=x.dtype,
                                  device=x.device)
@@ -163,30 +189,39 @@ def _seq_mix(cfg: ArchConfig, p, x, positions, is_global):
             s0 = torch.zeros((B, cfg.n_heads, hd, hd), dtype=torch.float32,
                              device=x.device)
             y, _, _ = ssm._rwkv6_mix(p["time_mix"], x, x_prev, cfg, s0)
-            return y
+            return y, mix_state
 
     raise ValueError(cfg.attn_type)
 
 
 def layer_forward(cfg: ArchConfig, p, x, positions, kind: str = "dense",
-                  is_global=None):
-    """One decoder layer (training/prefill)."""
+                  is_global=None, mix_state=None, decode: bool = False,
+                  pos=None):
+    """One decoder layer. Returns ``(x, new_mix_state)``."""
     with scope("pre_norm"):
         h = apply_norm(p["norm1"], x, cfg)
-    x = x + _seq_mix(cfg, p, h, positions, is_global)
+    y, new_state = _seq_mix(cfg, p, h, positions, is_global, mix_state,
+                            decode, pos)
+    x = x + y
     with scope("post_norm"):
         h = apply_norm(p["norm2"], x, cfg)
     if cfg.attn_type == "rwkv6":
         with scope("channel_mix"):
-            x_prev = torch.zeros((h.shape[0], 1, h.shape[-1]), dtype=h.dtype,
-                                 device=h.device)
-            y2, _ = ssm.rwkv6_channel_mix(p["channel_mix"], h, x_prev, cfg)
+            if decode:
+                y2, cm_last = ssm.rwkv6_channel_mix(
+                    p["channel_mix"], h, new_state["cm_shift"], cfg)
+                new_state = dict(new_state, cm_shift=cm_last)
+            else:
+                x_prev = torch.zeros((h.shape[0], 1, h.shape[-1]),
+                                     dtype=h.dtype, device=h.device)
+                y2, _ = ssm.rwkv6_channel_mix(p["channel_mix"], h, x_prev,
+                                              cfg)
     elif "moe" in p:
         with scope("moe"):
             y2 = moe_mod.moe_forward(p["moe"], h, cfg)
     else:
         y2 = mlp_forward(p["mlp"], h, cfg)
-    return x + y2
+    return x + y2, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -284,8 +319,8 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
 
     for i in range(_n_lead(cfg)):
         with scope(f"lead_layer{i}"):
-            x = layer_forward(cfg, params["lead_layers"][i], x, positions,
-                              "dense_lead", is_global=None)
+            x, _ = layer_forward(cfg, params["lead_layers"][i], x,
+                                 positions, "dense_lead", is_global=None)
 
     stack = params["layers"]
     kind = _stack_kind(cfg)
@@ -296,18 +331,19 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
                     # one layer is one trip of the reference's scan: one
                     # trajectory step here
                     with scope("layer", loop=True):
-                        x = layer_forward(cfg, _tree_index(stack, i), x,
-                                          positions, kind, is_global=False)
+                        x, _ = layer_forward(cfg, _tree_index(stack, i), x,
+                                             positions, kind, is_global=False)
             else:
                 with _global_frame(cfg, lo), scope("global_layer"):
-                    x = layer_forward(cfg, _tree_index(stack, lo), x,
-                                      positions, kind, is_global=True)
+                    x, _ = layer_forward(cfg, _tree_index(stack, lo), x,
+                                         positions, kind, is_global=True)
     else:
         globals_set = {i - _n_lead(cfg) for i in cfg.global_layers}
         for i in range(cfg.n_layers - _n_lead(cfg)):
             with scope(f"layer{i}"):
-                x = layer_forward(cfg, _tree_index(stack, i), x, positions,
-                                  kind, is_global=i in globals_set)
+                x, _ = layer_forward(cfg, _tree_index(stack, i), x,
+                                     positions, kind,
+                                     is_global=i in globals_set)
 
     if last_only:
         x = x[:, -1:]
@@ -355,9 +391,139 @@ def prefill(params, batch, cfg: ArchConfig):
     return logits[:, 0]
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int):
-    raise NotImplementedError(_DECODE)
+# ---------------------------------------------------------------------------
+# caches + decode
+# ---------------------------------------------------------------------------
+
+def init_layer_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype,
+                     device, window=None):
+    if cfg.attn_type == "gqa":
+        return attention.gqa_init_cache(cfg, batch, seq_len, dtype, device,
+                                        window=window)
+    if cfg.attn_type == "mla":
+        return attention.mla_init_cache(cfg, batch, seq_len, dtype, device)
+    if cfg.attn_type == "hymba":
+        return {"kv": attention.gqa_init_cache(cfg, batch, seq_len, dtype,
+                                               device, window=window),
+                "mamba": ssm.mamba_init_cache(cfg, batch, dtype, device)}
+    if cfg.attn_type == "rwkv6":
+        return ssm.rwkv6_init_state(cfg, batch, dtype, device)
+    raise ValueError(cfg.attn_type)
+
+
+def _stack_caches(one, n):
+    return pytree.tree_map(lambda t: t[None].expand((n,) + t.shape).clone(),
+                           one)
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device=None):
+    """Stacked (L, ...) cache tree (+ per-lead-layer caches), on ``device``
+    (``None`` = the CUDA device; raises if there is none).
+
+    Sliding-window layers get RING caches sized min(seq_len, window).
+    Global-attention layers (hymba) keep full-length caches in a separate
+    ``global`` list aligned with the execution segments; deepseek-v2's dense
+    lead layers keep theirs in a ``lead`` list.
+
+    ``pos`` is a (batch,) per-slot cursor so a continuous-batching server
+    can prefill one slot while others decode; aligned decode simply keeps
+    all lanes equal."""
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    n_lead = _n_lead(cfg)
+    n_stack = cfg.n_layers - n_lead
+    win = cfg.sliding_window
+    n_globals = sum(1 for k, _, _ in segments(cfg) if k == "global")
+    cache: Dict[str, Any] = {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    one = init_layer_cache(cfg, batch, seq_len, dtype, device, window=win)
+    cache["layers"] = _stack_caches(one, n_stack - n_globals)
+    if n_globals:
+        cache["global"] = [init_layer_cache(cfg, batch, seq_len, dtype,
+                                            device)
+                           for _ in range(n_globals)]
+    if n_lead:
+        cache["lead"] = [init_layer_cache(cfg, batch, seq_len, dtype, device)
+                         for _ in range(n_lead)]
+    return cache
 
 
 def decode_step(params, cache, tokens, cfg: ArchConfig, embeds=None):
-    raise NotImplementedError(_DECODE)
+    """One decode step. tokens: (B,) int32 (or embeds (B,1,d) for stub
+    frontends). Returns ``(logits (B, vocab), new cache)``; the input cache
+    is left unchanged."""
+    dtype = torch_dtype(cfg.dtype)
+    pos = cache["pos"]
+    if cfg.input_mode == "embeds" and embeds is not None:
+        x = embeds.to(dtype)
+    else:
+        with scope("embed"):
+            x = params["embed"].to(dtype)[tokens][:, None]
+
+    new_pos = pos + 1
+    new_lead = []
+    if _n_lead(cfg):
+        for i in range(_n_lead(cfg)):
+            with scope(f"lead_layer{i}"):
+                x, st = layer_forward(cfg, params["lead_layers"][i], x, None,
+                                      "dense_lead", is_global=None,
+                                      mix_state=cache["lead"][i],
+                                      decode=True, pos=pos)
+            new_lead.append(st)
+
+    stack, kind = params["layers"], _stack_kind(cfg)
+
+    def layer(i, x, cache_l, is_global, loop=False):
+        with scope("layer", loop=loop):
+            return layer_forward(cfg, _tree_index(stack, i), x, None, kind,
+                                 is_global=is_global, mix_state=cache_l,
+                                 decode=True, pos=pos)
+
+    outs, new_globals = [], []
+    if cfg.scan_layers:
+        c_off = 0          # cursor into the compacted ring-cache stack
+        for n, (seg, lo, hi) in enumerate(segments(cfg)):
+            # each segment is a scan of its own body, each global layer
+            # inlined code: sites of their own
+            with loop_body(f"segment{n}", once=True):
+                if seg == "scan":
+                    for i in range(lo, hi):
+                        x, st = layer(i, x,
+                                      _tree_index(cache["layers"], c_off),
+                                      False, loop=True)
+                        outs.append(st)
+                        c_off += 1
+                else:
+                    x, st = layer(lo, x, cache["global"][len(new_globals)],
+                                  True)
+                    new_globals.append(st)
+    else:
+        globals_set = {i - _n_lead(cfg) for i in cfg.global_layers}
+        c_off = 0
+        for i in range(cfg.n_layers - _n_lead(cfg)):
+            with loop_body(f"layer{i}", once=True):     # inlined layers
+                if i in globals_set and "global" in cache:
+                    x, st = layer(i, x, cache["global"][len(new_globals)],
+                                  True)
+                    new_globals.append(st)
+                    continue
+                x, st = layer(i, x, _tree_index(cache["layers"], c_off),
+                              i in globals_set)
+            outs.append(st)
+            c_off += 1
+    # the keys in init_cache's order: the cache's input signature (which
+    # the wrappers key their caches on) stays the same from step to step
+    new_cache: Dict[str, Any] = {
+        "pos": new_pos,
+        "layers": pytree.tree_map(lambda *ts: torch.stack(ts), *outs)}
+    if new_globals:
+        new_cache["global"] = new_globals
+    if new_lead:
+        new_cache["lead"] = new_lead
+
+    with scope("final_norm"):
+        x = apply_norm(params["final_norm"], x, cfg)
+    with scope("logits"):
+        head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+        logits = x[:, 0].to(torch.float32) @ head.to(torch.float32)
+    return logits, new_cache

@@ -324,12 +324,18 @@ def test_layernorm_sites_share_the_jitted_variance():
 
 
 def test_decode_raises_naming_the_serving_slice():
+    """Decode is ported (the serving slice, ``tests/test_torch_decode.py``);
+    what still raises is a cache asked for on no device where there is no
+    card, and a decode step given no cache."""
     for arch in ("olmoe-1b-7b", "seamless-m4t-large-v2"):
         m = Model(tbase.get_config(arch, "smoke"))
-        with pytest.raises(NotImplementedError, match="serving slice"):
-            m.init_cache(1, 8)
-        with pytest.raises(NotImplementedError, match="serving slice"):
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                m.init_cache(1, 8)
+        with pytest.raises(TypeError):
             m.decode_step({}, None, None)
+        cache = m.init_cache(1, 8, device="cpu")
+        assert cache["pos"].tolist() == [0]
 
 
 # --------------------------------------------------------------------------

@@ -68,7 +68,11 @@ def test_every_module_is_found():
                  "repro_torch.profile", "repro_torch.profile.trajectory",
                  "repro_torch.artifacts", "repro_torch.artifacts.artifact",
                  "repro_torch.artifacts.registry",
-                 "repro_torch.analysis.lint"):
+                 "repro_torch.analysis.lint",
+                 "repro_torch.guardrails", "repro_torch.guardrails.log",
+                 "repro_torch.serving", "repro_torch.serving.engine",
+                 "repro_torch.serving.shadow", "repro_torch.launch",
+                 "repro_torch.launch.serve"):
         assert want in mods
 
 
@@ -83,7 +87,10 @@ def test_every_module_is_found():
                                    "repro_torch.search",
                                    "repro_torch.apps",
                                    "repro_torch.profile",
-                                   "repro_torch.artifacts"])
+                                   "repro_torch.artifacts",
+                                   "repro_torch.guardrails",
+                                   "repro_torch.serving",
+                                   "repro_torch.launch.serve"])
 def test_importing_the_port_pulls_in_no_jax_and_no_reference_package(first):
     """In a fresh interpreter, whichever module comes first (the quantizer
     and the core import each other's submodules), import every module of

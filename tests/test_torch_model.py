@@ -276,5 +276,7 @@ def test_seeded_init_and_config_registry():
         get_config("nope")
     with pytest.raises(ValueError, match="nope"):
         Model(cfg.replace(attn_type="nope")).param_defs()
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        m.decode_step(a, None, None)
+    # decode (the serving slice) works: one step from an empty cache
+    cache = m.init_cache(1, 8, device="cpu")
+    logits, new = m.decode_step(a, cache, torch.tensor([5], dtype=torch.int32))
+    assert logits.shape == (1, cfg.vocab) and int(new["pos"][0]) == 1
