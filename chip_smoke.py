@@ -6,7 +6,7 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's nine paths:
+plain PyTorch version on the card, then drives the port's ten paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
@@ -60,7 +60,19 @@ plain PyTorch version on the card, then drives the port's nine paths:
     16 steps in 2,048-slot caches (hymba-1.5b's windowed layers through
     their rings) against its forward and one scoped ``truncate`` held to
     ``impl='ref'``, and h2o-danube-1.8b's ring cache decoded 4,112 steps,
-    past its 4,096-token window —
+    past its 4,096-token window;
+  * the train path — training h2o-danube-1.8b at full width and depth,
+    bf16 parameters with the f32 master copy, 1 x 2048 tokens from the
+    seeded pipeline: plain steps (twice, deterministic), the train step
+    truncated under ``scope:**/mlp=e5m7`` (loss and gradients, every
+    backward op under its forward scope) held bit for bit to
+    ``impl='ref'`` with the static quantizer's launches = the matched
+    forward, recompute and backward site executions, the hot-swapped step
+    over two tables held to the static steps with the dynamic quantizer's
+    launches = its site executions and its sites = a CPU enumeration's (the
+    backward runs on autograd's device thread on the card), and
+    ``launch.train --production`` with one restore, its checkpoint restored
+    bit for bit (at 2 layers unless ``--layers`` is given) —
 
 and times the kernels and the forward. Nothing is caught: any failed phase
 ends the run with a traceback and a non-zero exit code.
@@ -79,10 +91,13 @@ mem path's 12 unless given; on the models path, olmoe-1b-7b's),
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,mem_path,traj_path,fused_path,small_ref,
-times,reconcile,search_path,apps_path,artifact_path,models_path,serve_path``
+times,reconcile,search_path,apps_path,artifact_path,models_path,serve_path,
+train_path``
 or adds
-``profile`` (device time by kernel name for one plain and one swept forward)
-or ``isa`` (registers and spills of every WKV6 kernel, from ``nvcc -Xptxas
+``profile`` (device time by kernel name for one plain and one swept forward,
+a decode tick, a train step; ``profile_train`` the train step alone),
+``train_lr`` (the train path's plain steps at several learning rates and
+depths) or ``isa`` (registers and spills of every WKV6 kernel, from ``nvcc -Xptxas
 -v``); ``fused_times`` alone times the flash-attention and WKV6 kernels
 without the quantizers (``times`` includes it).
 """
@@ -94,6 +109,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -342,6 +359,27 @@ def phase_kernels(device):
     except ValueError:
         raised = True
     check(raised, "impl='cuda' on a CPU tensor must raise")
+
+    # the result keeps the input's strides (a permuted, dense view is
+    # rounded in its own memory order; a view with gaps through a copy), as
+    # the plain versions' results do
+    fmt = FPFormat(5, 7)
+    base = x32[:2 ** 16].reshape(16, 64, 64)
+    layouts = {"permuted": base.permute(2, 0, 1),
+               "transposed": base[0].t(), "strided": base[:, ::2]}
+    layout_bad = {}
+    for lname, v in layouts.items():
+        for dt in (torch.float32, torch.bfloat16):
+            xv = v.to(dt)
+            want = ref.quantize_ref_fmt(xv.float(), fmt).to(dt)
+            for name, got in (
+                    ("quantize_em_static", qk.quantize_em_static(xv, fmt)),
+                    ("quantize_em_dynamic", qk.quantize_em_dynamic(
+                        xv, row_tensor(5, 7, 0, 1)))):
+                hold(name, got, want)
+                if got.stride() != torch.empty_like(xv).stride():
+                    layout_bad[f"{name}/{lname}/{dt}"] = got.stride()
+    check(not layout_bad, "quantizer results change the layout", layout_bad)
 
     torch.cuda.synchronize()
     emit("kernels", n_elements=int(x32.numel()),
@@ -2353,6 +2391,353 @@ def phase_artifact_path(device, layers, seq):
     return counts
 
 
+# --------------------------------------------------------------------------
+# the train path: loss and gradients truncated under their forward scopes
+# --------------------------------------------------------------------------
+
+TRAIN_SEQ = 2048
+# AdamW's first steps move every weight by about the learning rate: at
+# 1e-3 and 3e-4 the second step overshoots on the one batch (PERF.md)
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 3
+TRAIN_IO_LAYERS = 2        # the CLI run and its checkpoint
+TRAIN_POLICY = "scope:**/mlp=e5m7"
+TRAIN_SWAP = "scope:**/attn/**=e8m3"
+# the CPU enumeration the card's sites are held to: the same depth and
+# sequence, the smoke config's widths (sites do not depend on widths)
+TRAIN_CPU_WIDTHS = dict(d_model=64, n_heads=4, n_kv_heads=1, head_dim=16,
+                        d_ff=160, vocab=256)
+# CUDA ops whose default kernels add with atomics
+NONDETERMINISTIC = {"index_put_", "_index_put_impl_", "index_add_",
+                    "index_add", "scatter_add", "scatter_add_",
+                    "scatter_reduce", "embedding_dense_backward"}
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def site_split(index):
+    """Executions of an enumeration's sites, (forward, recomputed in the
+    backward pass, backward)."""
+    out = [0, 0, 0]
+    for key, n in zip(index.site_keys(), index.counts):
+        out[2 if "#grad" in key[0] else 1 if "#remat" in key[0] else 0] += n
+    return tuple(out)
+
+
+def site_list(index):
+    """Each site's key, stack, primitive and dtype; the input signature a
+    ``shared_body`` frame carries in its path (``#silu((1, 2048, 6912)
+    torch.bfloat16)``) holds widths, and is left out."""
+    return [((re.sub(r"#(\w+)\((?:\([\d, ]*\)torch\.\w+,?)+\)",
+                     r"#\1(...)", k[0]),) + k[1:], s.stack, s.prim,
+             str(s.dtype))
+            for k, s in zip(index.site_keys(), index.sites)]
+
+
+def tree_mismatches(a, b) -> int:
+    from repro_torch.optim import tree as T
+    la, lb = T.leaves(a), T.leaves(b)
+    check(len(la) == len(lb), "tree sizes", len(la), len(lb))
+    return sum(bit_mismatches(x, y) if x.is_floating_point()
+               else int((x != y).sum()) for x, y in zip(la, lb))
+
+
+def aten_names(fn) -> set:
+    """Names of the aten ops ``fn()`` dispatches, backward ops included."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = set()
+
+    class Names(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.add(func._schema.name.split("::")[-1])
+            return func(*args, **(kwargs or {}))
+    with Names():
+        fn()
+    return seen
+
+
+def phase_train_path(device, layers):
+    """Training: h2o-danube-1.8b at full width (``--layers`` cuts the
+    depth), bf16 parameters with the f32 master copy, B = 1 x 2048 tokens
+    from the synthetic pipeline. Three plain steps (twice: the backward must
+    be deterministic); three ``make_train_step`` steps under the scoped
+    e5m7 policy held bit for bit to ``impl='ref'``, the static quantizer's
+    launches to the matched forward + recompute + backward executions; the
+    hot-swap step over two tables held bit for bit to the static steps of
+    the same policies, one enumeration, the dynamic quantizer's launches to
+    the site executions, its site list to the CPU's; ``launch.train
+    --production`` with one restore, its checkpoint restored bit for bit,
+    at ``TRAIN_IO_LAYERS`` unless ``--layers`` is given (through
+    ``main``'s ``n_layers``). No step synchronises with the host."""
+    from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import TruncationPolicy, truncate_sweep
+    from repro_torch.core.policy import parse_policy
+    from repro_torch.data import DataConfig, Pipeline, to_device
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_opt_state,
+                                   make_hotswap_train_step, make_train_step,
+                                   value_and_grad)
+
+    cfg = get_config("h2o-danube-1.8b")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    model = Model(cfg)
+    batch = to_device(Pipeline(DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=1, vocab=cfg.vocab)).next())
+    mlp, attn = parse_policy(TRAIN_POLICY), parse_policy(TRAIN_SWAP)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    tc = TrainConfig(optimizer=opt_cfg)
+
+    def fresh():
+        params = model.init(seed=0)
+        return params, init_opt_state(model, params, tc)
+
+    def run(steps, tables=None, sync=True):
+        """``steps`` (one step function per step) from the seed-0 state on
+        the one batch: (params, losses, grad norms, ms a step, launches by
+        kernel)."""
+        p, o = fresh()
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        losses, norms, ms = [], [], []
+        for i, fn in enumerate(steps):
+            extra = (tables[i],) if tables else ()
+
+            def call():
+                return fn(p, o, batch, i, *extra)
+            t0 = time.perf_counter()
+            p, o, m = sync_free(call) if sync else call()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        after = kernels.launch_counts()
+        emit("train_path_run", steps=len(steps), ms=ms,
+             allocated_gb=round(torch.cuda.memory_allocated() / 2**30, 2),
+             peak_gb=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+        return (p, torch.stack(losses),
+                torch.stack(norms), ms,
+                {k: after[k] - before[k] for k in after})
+
+    def equal(a, b):
+        return tree_mismatches(a, b) == 0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()               # the train path starts here
+    t_start = time.perf_counter()
+
+    # ---- 1. plain steps; the backward must be deterministic ---------------
+    plain = make_train_step(model, tc)
+    p1, l1, n1, ms_plain, _ = run([plain] * TRAIN_STEPS)
+    p2, l2, n2, _, _ = run([plain] * TRAIN_STEPS)
+    deterministic = {"default": equal(p1, p2) and equal(l1, l2)
+                     and equal(n1, n2)}
+    forced_by = []
+    if not deterministic["default"]:
+        names = aten_names(lambda: plain(*fresh(), batch, 0))
+        forced_by = sorted(names & NONDETERMINISTIC)
+        torch.use_deterministic_algorithms(True)
+        p1, l1, n1, ms_plain, _ = run([plain] * TRAIN_STEPS)
+        p2, l2, n2, _, _ = run([plain] * TRAIN_STEPS)
+        deterministic["forced"] = equal(p1, p2) and equal(l1, l2)
+    check(deterministic.get("forced", deterministic["default"]),
+          "train path: two plain runs differ", deterministic)
+    plain_losses = [float(x) for x in l1]
+    check(all(math.isfinite(x) for x in plain_losses)
+          and plain_losses[-1] < plain_losses[0],
+          "train path: plain loss not finite and falling", plain_losses)
+    del p1, p2
+
+    # ---- 2. make_train_step under the scoped policy, against impl='ref' ---
+    static = make_train_step(model, TrainConfig(optimizer=opt_cfg,
+                                                policy=mlp))
+    pt, lt, nt, ms_trunc, ct = run([static] * TRAIN_STEPS)
+    ref = make_train_step(model, TrainConfig(optimizer=opt_cfg, policy=mlp,
+                                             policy_impl="ref"))
+    # the plain quantizer builds its constants from the host: no sync check
+    pr, lr_, nr, _, _ = run([ref] * TRAIN_STEPS, sync=False)
+    static_bits = dict(loss=tree_mismatches(lt, lr_),
+                       grad_norm=tree_mismatches(nt, nr),
+                       params=tree_mismatches(pt, pr))
+    del pr, pt
+    matched = truncate_sweep(value_and_grad(model.loss), mlp)(
+        model.init(seed=0), batch).index
+    fwd, remat_, bwd = site_split(matched)
+    static_launches = ct["quantize_em_static"]
+    check(sum(static_bits.values()) == 0, "train path: truncate vs ref",
+          static_bits)
+    check(static_launches == TRAIN_STEPS * matched.executions and bwd > 0,
+          "train path: static launches", static_launches, fwd, remat_, bwd)
+    check(float(lt[-1]) != plain_losses[-1], "train path: the policy bit")
+    check(bool(torch.isfinite(lt).all() & torch.isfinite(nt).all()),
+          "train path: truncated steps not finite", lt, nt)
+
+    # ---- 3. the hot-swap step over two tables --------------------------------
+    site = TruncationPolicy(rules=mlp.rules + attn.rules)
+    hot, sites = make_hotswap_train_step(model, tc, site, model.init(seed=0),
+                                         batch)
+    pols = [mlp, attn, mlp][:TRAIN_STEPS]
+    tables = [hot.device_table(sites.table_for(p)) for p in pols]
+    ph, lh, nh, ms_hot, ch = run([hot] * TRAIN_STEPS, tables)
+    by_pol = {id(mlp): static,
+              id(attn): make_train_step(model, TrainConfig(
+                  optimizer=opt_cfg, policy=attn))}
+    ps, ls, ns, _, _ = run([by_pol[id(p)] for p in pols])
+    hot_bits = dict(loss=tree_mismatches(lh, ls),
+                    grad_norm=tree_mismatches(nh, ns),
+                    params=tree_mismatches(ph, ps))
+    del ps, ph
+    dyn_launches = ch["quantize_em_dynamic"]
+    check(sum(hot_bits.values()) == 0, "train path: hot vs static",
+          hot_bits)
+    check(bool(torch.isfinite(lh).all()), "train path: hot steps", lh)
+    check(hot.sweep.n_traces == 1, "train path: n_traces",
+          hot.sweep.n_traces)
+    check(dyn_launches == TRAIN_STEPS * sites.executions,
+          "train path: dynamic launches", dyn_launches, sites.executions)
+    # the thread check: the card's backward runs on autograd's device
+    # thread, the CPU's on the caller's; the sites must be the same
+    t0 = time.perf_counter()
+    small = Model(cfg.replace(**TRAIN_CPU_WIDTHS))
+    cpu_params = small.init(seed=0, device="cpu")
+    cpu_batch = {k: v.cpu() % TRAIN_CPU_WIDTHS["vocab"]
+                 for k, v in batch.items()}
+    cpu_sites = truncate_sweep(value_and_grad(small.loss), site,
+                               device="cpu")(cpu_params, cpu_batch).index
+    cpu_s = time.perf_counter() - t0
+    card_list, cpu_list = site_list(sites), site_list(cpu_sites)
+    same_sites = card_list == cpu_list
+    check(same_sites, "train path: card and CPU sites differ",
+          len(cpu_sites), len(sites), [
+              (a, b) for a, b in zip(card_list, cpu_list) if a != b][:6])
+    del cpu_params
+    sites_by_scope = {}
+    for s_ in sites.sites:
+        sites_by_scope[s_.scope] = sites_by_scope.get(s_.scope, 0) + 1
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # ---- 4. launch.train --production, one restore; the checkpoint of its
+    # first run restored bit for bit -----------------------------------------
+    # the full-depth state is 25.6 GB: its writes and reads would not fit
+    # the default run's time, so there this part runs at a cut depth
+    io_layers = TRAIN_IO_LAYERS if layers is None else cfg.n_layers
+    cli_dir = os.path.join(ROOT, "build", "train_cli")
+    if os.path.exists(cli_dir):
+        shutil.rmtree(cli_dir)
+    argv = ["--production", "--arch", "h2o-danube-1.8b", "--policy",
+            TRAIN_POLICY, "--device", "cuda", "--seq", str(TRAIN_SEQ),
+            "--global-batch", "4", "--save-every", "2", "--ckpt", cli_dir]
+    t0 = time.perf_counter()
+    first = train_cli.main(argv + ["--steps", "2"], n_layers=io_layers)
+    cli_s = time.perf_counter() - t0
+    saved = (first["state"]["params"], first["state"]["opt"])
+    ck_gb = sum(os.path.getsize(os.path.join(d, f))
+                for d, _, fs in os.walk(cli_dir) for f in fs) / 2**30
+    t0 = time.perf_counter()
+    restored, manifest = Checkpointer(cli_dir).restore(saved)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ck_bits = tree_mismatches(saved, restored)
+    check(ck_bits == 0 and manifest["step"] == 2,
+          "train path: checkpoint round trip", ck_bits)
+    del first["state"], saved, restored
+    t0 = time.perf_counter()
+    second = train_cli.main(argv + ["--steps", "4"], n_layers=io_layers)
+    cli_s += time.perf_counter() - t0
+    del second["state"]
+    shutil.rmtree(cli_dir)
+    cli_ok = (first["final_step"] == 2 and second["final_step"] == 4
+              and sorted(second["losses"]) == [2, 3]
+              and all(math.isfinite(v) for v in second["losses"].values()))
+    check(cli_ok, "train path: launch.train", first["losses"],
+          second["losses"])
+    counts = kernels.launch_counts()            # ... and ends here
+    torch.cuda.empty_cache()
+
+    def med(xs):
+        return statistics.median(xs[1:]) if len(xs) > 1 else xs[0]
+    emit("train_path", model=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab,
+         n_params=model.n_params(), dtype=cfg.dtype, batch=[1, TRAIN_SEQ],
+         remat=cfg.remat, lr=TRAIN_LR, steps=TRAIN_STEPS,
+         policy=TRAIN_POLICY, swap_policy=TRAIN_SWAP,
+         grad_norms=dict(plain=[float(x) for x in n1],
+                         truncated=[float(x) for x in nt],
+                         hotswap=[float(x) for x in nh]),
+         plain_losses=plain_losses,
+         truncated_losses=[float(x) for x in lt],
+         hotswap_losses=[float(x) for x in lh],
+         deterministic=deterministic, deterministic_forced_by=forced_by,
+         truncate_vs_ref_mismatches=static_bits,
+         hotswap_vs_static_mismatches=hot_bits,
+         matched_site_executions=dict(forward=fwd, recompute=remat_,
+                                      backward=bwd,
+                                      total=matched.executions),
+         static_launches=static_launches,
+         hotswap_sites=len(sites), hotswap_site_executions=sites.executions,
+         hotswap_site_split=site_split(sites), dynamic_launches=dyn_launches,
+         n_traces=hot.sweep.n_traces, sites_by_scope=sites_by_scope,
+         cpu_sites_equal=same_sites, cpu_enumeration_s=round(cpu_s, 1),
+         ms_plain_step=med(ms_plain), ms_truncated_step=med(ms_trunc),
+         ms_hotswap_step=med(ms_hot), ms_steps=dict(
+             plain=ms_plain, truncated=ms_trunc, hotswap=ms_hot),
+         peak_gb=round(peak_gb, 2), io_layers=io_layers,
+         checkpoint_gb=round(ck_gb, 2),
+         checkpoint_restore_s=round(restore_s, 1),
+         cli_s=round(cli_s, 1), cli_losses={
+             **{str(k): v for k, v in first["losses"].items()},
+             **{str(k): v for k, v in second["losses"].items()}},
+         seconds=round(time.perf_counter() - t_start, 1))
+    return {k: counts[k] for k in counts}
+
+
+# the learning rates and depths of phase ``train_lr``
+TRAIN_LRS = (1e-3, 3e-4, 1e-4)
+TRAIN_LR_DEPTHS = (1, 2, 4, 8, 24)
+
+
+def phase_train_lr(device, layers):
+    """The train path's plain steps at each of ``TRAIN_LRS``: its batch,
+    ``Model.init(seed=0)``, bf16 parameters with the f32 master copy, at
+    each depth of ``TRAIN_LR_DEPTHS`` (``--layers`` alone if given), and in
+    f32 at the deepest. Shows where AdamW's second step overshoots on the
+    one batch; ``tests/torch_lr_witness.py`` runs the reference beside the
+    port on the CPU for the same question."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, Pipeline, to_device
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_opt_state,
+                                   make_train_step)
+
+    cfg = get_config("h2o-danube-1.8b")
+    batch = to_device(Pipeline(DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=1, vocab=cfg.vocab)).next())
+    depths = (layers,) if layers is not None else TRAIN_LR_DEPTHS
+    runs = [(d, cfg.dtype) for d in depths] + [(depths[-1], "float32")]
+    for depth, dtype in runs:
+        model = Model(cfg.replace(n_layers=depth, dtype=dtype))
+        for lr in TRAIN_LRS:
+            tc = TrainConfig(optimizer=AdamWConfig(lr=lr))
+            params = model.init(seed=0)
+            opt = init_opt_state(model, params, tc)
+            step = make_train_step(model, tc)
+            losses, norms = [], []
+            for i in range(TRAIN_STEPS):
+                params, opt, m = step(params, opt, batch, i)
+                losses.append(m["loss"])
+                norms.append(m["grad_norm"])
+            emit("train_lr", n_layers=depth, dtype=dtype, lr=lr,
+                 batch=[1, TRAIN_SEQ], losses=[float(x) for x in losses],
+                 grad_norms=[float(x) for x in norms])
+            del params, opt, step
+        torch.cuda.empty_cache()
+
+
 def event_ms(fn, reps=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -2601,6 +2986,42 @@ def phase_profile(device, layers, seq):
                 params, cache, tokens)[0][0].cpu()},
             reps=5, model=cfg.name, n_layers=cfg.n_layers,
             batch=SERVE_BATCH, max_seq=SERVE_SEQ, aten_calls_plain=calls)
+    del params, cache, lossy, shadowed
+    torch.cuda.empty_cache()
+    phase_profile_train(device, layers)
+
+
+def phase_profile_train(device, layers):
+    """One train step of h2o-danube-1.8b at the train path's shape, plain
+    and under ``make_train_step`` scoped to ``**/mlp`` e5m7: device busy
+    against wall time (``profile_train`` lines)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import parse_policy
+    from repro_torch.data import DataConfig, Pipeline, to_device
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import TrainConfig, init_opt_state, make_train_step
+
+    cfg = get_config("h2o-danube-1.8b")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR))
+    opt = init_opt_state(model, params, tc)
+    batch = to_device(Pipeline(DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=1, vocab=cfg.vocab)).next())
+    plain = make_train_step(model, tc)
+    lossy = make_train_step(model, TrainConfig(
+        optimizer=tc.optimizer, policy=parse_policy(TRAIN_POLICY)))
+    calls = aten_calls(lambda: plain(params, opt, batch, 0))
+    profile_runs("profile_train", {
+        "plain": lambda: plain(params, opt, batch, 0)[2]["loss"].cpu(),
+        "truncate_mlp": lambda: lossy(
+            params, opt, batch, 0)[2]["loss"].cpu()},
+        model=cfg.name, n_layers=cfg.n_layers, batch=[1, TRAIN_SEQ],
+        policy=TRAIN_POLICY,
+        aten_calls_plain=calls)
 
 
 def aten_calls(fn) -> int:
@@ -2662,7 +3083,7 @@ def main():
                                         "small_ref,times,reconcile,"
                                         "search_path,apps_path,"
                                         "artifact_path,models_path,"
-                                        "serve_path")
+                                        "serve_path,train_path")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2713,6 +3134,10 @@ def main():
         by_path["models_path"] = phase_models_path(device, args.layers)
     if "serve_path" in phases:
         by_path["serve_path"] = phase_serve_path(device)
+    if "train_path" in phases:
+        by_path["train_path"] = phase_train_path(device, args.layers)
+    if "train_lr" in phases:
+        phase_train_lr(device, args.layers)
     if "small_ref" in phases:
         phase_small_ref(device)
     if "reconcile" in phases:
@@ -2724,6 +3149,8 @@ def main():
         rows += phase_fused_times(device, args.seq, args.wkv_seq)
     if "profile" in phases:
         phase_profile(device, args.layers, args.seq)
+    elif "profile_train" in phases:
+        phase_profile_train(device, args.layers)
     if "isa" in phases:
         phase_isa()
     if forward_times:
@@ -2775,7 +3202,9 @@ def main():
                                       "quantize_em_dynamic"),
                     "models_path": ("quantize_em_static",
                                     "quantize_em_dynamic"),
-                    "serve_path": ("quantize_em_static",)}
+                    "serve_path": ("quantize_em_static",),
+                    "train_path": ("quantize_em_static",
+                                   "quantize_em_dynamic")}
     for path, names in path_kernels.items():
         if path in phases:
             check(all(by_path[path][n] > 0 for n in names), path, summary)

@@ -120,6 +120,14 @@ def truncate(fn: Callable, policy: TruncationPolicy, *, impl: str = "auto",
     policy is matched once (``wrapper.n_traces``); later calls re-use the
     per-site decisions.
 
+    **Gradients.** A backward pass run *inside* ``fn`` (``fn`` calls
+    ``torch.autograd.grad``, as ``train.value_and_grad`` does) is walked
+    too: each backward op is rounded under the scope of the forward op it
+    differentiates (the reference's ``truncate(jax.value_and_grad(loss))``),
+    and a ``remat`` region's recompute under the region's scopes. A
+    ``.backward()`` called on the wrapper's output *outside* it is not
+    walked: the rounding is invisible to autograd (straight-through).
+
     ``native_fp8`` (run ``quantize_dot_inputs`` dot sites on fp8 storage)
     is not ported yet and raises ``NotImplementedError`` when true."""
     _no_mesh(mesh, in_shardings)
@@ -170,6 +178,12 @@ class SweepHandle:
     @property
     def sites(self):
         return self._index.sites
+
+    @property
+    def index(self):
+        """The :class:`~repro_torch.core.interpreter.SiteIndex` of this
+        input signature (``table_for``, ``identity_table``)."""
+        return self._index
 
     @property
     def num_sites(self) -> int:
@@ -229,7 +243,12 @@ def truncate_sweep(fn: Callable, site_policy: TruncationPolicy, *,
     ``wrapper.n_traces`` counts enumerations (one per input signature).
 
     The table lives on the device of the first tensor input (or
-    ``device=``); an evaluation makes no host synchronisation per site."""
+    ``device=``); an evaluation makes no host synchronisation per site.
+
+    Gradients as in :func:`truncate`: the sites of a backward pass run
+    inside ``fn`` are enumerated under their forward ops' scopes (in a
+    frame ``<forward path>/#grad<position>``) and rounded by the table;
+    ``.backward()`` outside the handle is straight-through."""
     _no_mesh(mesh, in_shardings)
     suffix = (site_policy.cache_key(), impl, batch_axis)
 
@@ -273,7 +292,10 @@ def memtrace(fn: Callable, policy: TruncationPolicy, _threshold=None,
 
     Per input signature the policy is matched once and the location table
     kept (``wrapper.n_traces``). ``mesh`` / ``in_shardings`` must be
-    ``None`` (distribution is not ported yet)."""
+    ``None`` (distribution is not ported yet). A backward pass inside
+    ``fn`` raises ``NotImplementedError`` (not ported yet, ROADMAP Queue
+    A); so does one inside ``profile_trajectory`` and
+    ``profile_counts``."""
     threshold = _legacy_threshold_shim("memtrace", _threshold, threshold)
     _no_mesh(mesh, in_shardings)
     suffix = ("memtrace", policy.cache_key(), threshold, impl)

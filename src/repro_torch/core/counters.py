@@ -161,6 +161,10 @@ class _CountMode(TorchDispatchMode):
         self.by_scope = collections.defaultdict(float)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if torch._C._current_autograd_node() is not None:
+            raise NotImplementedError(
+                "profile_counts: a backward pass inside the counted function "
+                "(torch.autograd.grad) is not supported yet (ROADMAP Queue A)")
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         prim, _ = prim_name(func, args)

@@ -104,6 +104,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.policy import (
@@ -138,7 +139,7 @@ ATEN_TO_PRIM: Dict[str, str] = _table({
     "conv_general_dilated": "convolution",
     "add": "add logsumexp",
     "sub": "sub rsub _log_softmax",
-    "mul": "mul silu gelu native_dropout",
+    "mul": "mul silu gelu native_dropout tanh_backward sigmoid_backward",
     "div": "div true_divide reciprocal _softmax",
     "rem": "remainder fmod",
     "pow": "pow",
@@ -182,9 +183,9 @@ ATEN_TO_PRIM: Dict[str, str] = _table({
     "split": "split split_with_sizes chunk",
     "concatenate": "cat stack repeat roll",
     "gather": "index index_select gather embedding",
-    "pad": "constant_pad_nd",
+    "pad": "constant_pad_nd select_backward slice_backward",
     "rev": "flip",
-    "select_n": "where masked_fill tril triu",
+    "select_n": "where masked_fill tril triu threshold_backward",
     "copy": "clone contiguous copy lift_fresh _local_scalar_dense",
     "stop_gradient": "detach alias",
     "iota": "arange",
@@ -215,6 +216,10 @@ ATEN_TO_PRIM: Dict[str, str] = _table({
     "floor": "floor floor_divide",
     "ceil": "ceil",
     "round": "round trunc",
+    # the gradient of an embedding lookup (backward formulas are named
+    # after the reference VJP's equation that gives their value:
+    # ``tanh_backward`` is a ``mul``, ``select_backward`` a ``pad``)
+    "scatter-add": "embedding_dense_backward",
 })
 
 _PRIM_CACHE: Dict[Any, Tuple[str, bool]] = {}
@@ -254,6 +259,7 @@ def prim_name(func, args=()) -> Tuple[str, bool]:
 
 
 _POW_SCALAR = torch.ops.aten.pow.Tensor_Scalar
+_DETACH = torch.ops.aten.detach.default
 
 
 # --------------------------------------------------------------------------
@@ -275,11 +281,17 @@ class _Frame:
         self.loop, self.depth = loop, depth
 
 
-_tls = threading.local()
+class _Local(threading.local):
+    frames: Optional[List[_Frame]] = None
+    recompute = False          # inside a ``remat`` region's recompute
+    on_step = None
+
+
+_tls = _Local()
 
 
 def _frames() -> List[_Frame]:
-    fr = getattr(_tls, "frames", None)
+    fr = _tls.frames
     if fr is None:
         fr = _tls.frames = [_Frame("", "")]
     return fr
@@ -302,7 +314,7 @@ def _enter(frame: _Frame):
         frames.pop()
     if frame.loop and frame.depth == 1:
         # one trip of an outermost loop ended: a trajectory step
-        hook = getattr(_tls, "on_step", None)
+        hook = _tls.on_step
         if hook is not None:
             hook()
 
@@ -313,7 +325,7 @@ def on_step(hook):
     inside (a ``loop_body`` or a ``scope(..., loop=True)`` entry that lies in
     no other loop trip): the trajectory step of mem-mode, what one trip of a
     depth-0 ``scan`` or ``while`` is to the reference."""
-    prev = getattr(_tls, "on_step", None)
+    prev = _tls.on_step
     _tls.on_step = hook
     try:
         yield
@@ -377,6 +389,159 @@ def _fresh_root():
 
 
 # --------------------------------------------------------------------------
+# backward ops: the forward op's scope
+# --------------------------------------------------------------------------
+
+_current_node = torch._C._current_autograd_node
+_sequence_nr = torch.autograd._get_sequence_nr
+
+# what a primitive of a backward formula is to a policy: the reference's
+# transpose accumulates cotangents with ``add_any``, never ``add``
+_BACKWARD_PRIM = {"add": "add_any", "scatter": "scatter-add"}
+
+
+class _Grads:
+    """Where each op of one transformed run lies, backward ops included.
+
+    The reference differentiates a traced program, and every equation of
+    its backward keeps the name stack of the forward equation it came from
+    (``transpose(jvp(mlp))`` normalises to ``mlp``). PyTorch runs backward
+    ops from autograd nodes, after every ``scope`` has exited and, on the
+    card, on the autograd engine's own device thread, where this module's
+    thread-local frames are not the caller's. So:
+
+      * a forward op claims the autograd node made for it: autograd creates
+        the node (and takes its sequence number, per thread) before it
+        redispatches to this mode, so the first op that sees a new number
+        is the node's op. Numbers from before the run are never claimed;
+      * a backward op finds its node with ``torch._C._current_autograd_node``
+        and runs in a frame keyed under the claiming op's site,
+        ``<forward path>/#grad<forward position>``, with the forward
+        stack. Its position counts the ops of that node's run, so it does
+        not depend on which thread the engine uses, and the backward of a
+        body that ran N times (the layers under ``layer``) shares one set of
+        sites, as the forward does. A node some of whose inputs need no
+        gradient runs other ops: its frame adds the mask
+        (``#grad<position>:01``);
+      * a backward op of a node no forward op of the run claimed (a leaf's
+        gradient accumulator), and any op on another thread outside a
+        node, runs in one ``#grad`` frame under the run's root, in engine
+        order; the seed gradient (``ones_like`` in ``torch.autograd.grad``)
+        runs on the caller's thread at the root, as the reference's does;
+      * the recompute of a ``remat`` region is forward code: it re-enters
+        the region's frames (``_recompute``) and claims nothing.
+    """
+
+    __slots__ = ("seq0", "last", "root", "fwd", "bwd", "orphan")
+
+    def __init__(self):
+        self.seq0 = self.last = _sequence_nr()
+        self.root = _frames()[0]
+        self.fwd: Dict[int, Tuple[_Frame, int]] = {}
+        self.bwd: Dict[int, _Frame] = {}
+        self.orphan: Optional[_Frame] = None
+
+    def _orphan(self) -> _Frame:
+        if self.orphan is None:
+            self.orphan = _Frame(join_stack(self.root.path, "#grad"),
+                                 self.root.stack)
+        return self.orphan
+
+    def site(self, counted: bool = True) -> Tuple[_Frame, int, bool]:
+        """(frame, position, whether the op is a backward op) of the op
+        being dispatched. An op that is not ``counted`` (``detach``, which
+        autograd's saved-tensor hooks issue once per saved tensor: more
+        where more inputs need gradients, so it would shift the positions
+        of one loop trip against another) gets position -1: it never holds
+        a site, and claims no node."""
+        recompute = _tls.recompute
+        node = None if recompute else _current_node()
+        if node is None:
+            frames = _frames()
+            if frames[0] is not self.root and not recompute:
+                # another thread than the run's, outside any node
+                return self._next(self._orphan(), counted) + (True,)
+            frame = frames[-1]
+            if not counted:
+                return frame, -1, False
+            pos = frame.pos
+            frame.pos = pos + 1
+            if not recompute:
+                seq = _sequence_nr()
+                if seq != self.last:        # autograd made a node for it
+                    self.last = seq
+                    self.fwd.setdefault(seq - 1, (frame, pos))
+            return frame, pos, False
+        seq = node._sequence_nr()
+        frame = self.bwd.get(seq)
+        if frame is None:
+            hit = self.fwd.get(seq)
+            if hit is None:
+                frame = self._orphan()
+            else:
+                ff, fpos = hit
+                # a node some of whose inputs need no gradient runs fewer
+                # ops (the first trip of a loop whose carry starts as a
+                # constant): it gets a frame of its own
+                need = "".join("0" if f is None else "1"
+                               for f, _ in node.next_functions)
+                tag = f"#grad{fpos}" + (f":{need}" if "0" in need else "")
+                frame = _Frame(join_stack(ff.path, tag), ff.stack, False,
+                               ff.depth)
+            self.bwd[seq] = frame
+        return self._next(frame, counted) + (True,)
+
+    @staticmethod
+    def _next(frame: _Frame, counted: bool) -> Tuple[_Frame, int]:
+        if not counted:
+            return frame, -1
+        pos = frame.pos
+        frame.pos = pos + 1
+        return frame, pos
+
+
+@contextlib.contextmanager
+def _recompute(snapshot):
+    """The recompute of a ``remat`` region, on whatever thread the engine
+    runs it: the region's frames as they stood at the call, a hidden
+    one-trip ``#remat`` frame on top (the recomputed ops are sites of their
+    own, as the reference's rematerialised equations are), positions from
+    zero."""
+    frames = [_Frame(p, s, lp, d) for p, s, lp, d in snapshot]
+    top = frames[-1]
+    frames.append(_Frame(join_stack(top.path, "#remat"), top.stack, False,
+                         top.depth))
+    saved = _tls.frames, _tls.recompute
+    _tls.frames, _tls.recompute = frames, True
+    try:
+        yield
+    finally:
+        _tls.frames, _tls.recompute = saved
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (``jax.checkpoint`` in the reference): ``torch.utils.checkpoint``,
+    non-reentrant, when autograd records a tensor of ``args``; a plain call
+    otherwise, so a forward without gradients is unchanged. The recompute
+    runs under the scopes of the call with sites of its own."""
+    if not torch.is_grad_enabled() or not any(
+            isinstance(a, torch.Tensor) and a.requires_grad
+            for a in pytree.tree_leaves(args)):
+        return fn(*args)
+    snapshot = [(f.path, f.stack, f.loop, f.depth) for f in _frames()]
+
+    def contexts():
+        return contextlib.nullcontext(), _recompute(snapshot)
+
+    from torch.utils.checkpoint import checkpoint
+    # the port's models draw no random numbers, so no generator state is
+    # saved and restored around the recompute
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts,
+                      preserve_rng_state=False)
+
+
+# --------------------------------------------------------------------------
 # the modes
 # --------------------------------------------------------------------------
 
@@ -416,13 +581,28 @@ class _WalkMode(TorchDispatchMode):
     tensor ops (and a fused kernel's plain version) are not intercepted
     again. ``on_inputs`` may route a site's row into a fused op; the outputs
     it names as routed skip ``on_output``. ``run`` runs the op (mem-mode
-    runs it on a second lane too)."""
+    runs it on a second lane too). Where an op runs is ``_Grads.site``'s
+    answer: a forward op's frame, or the backward frame of the forward op
+    whose autograd node it belongs to."""
+
+    # mem-mode pairs lanes op by op in program order; a backward pass has
+    # no such order to pair yet
+    backward_ok = True
+
+    def __enter__(self):
+        self.grads = _Grads()
+        return super().__enter__()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        frame = _frames()[-1]
-        pos = frame.pos
-        frame.pos = pos + 1
         prim, mutates = prim_name(func, args)
+        frame, pos, backward = self.grads.site(func is not _DETACH)
+        if backward:
+            if not self.backward_ok:
+                raise NotImplementedError(
+                    f"{type(self).__name__}: a backward pass inside the "
+                    "profiled function (torch.autograd.grad) is not supported "
+                    "by mem-mode and trajectories yet (ROADMAP Queue A)")
+            prim = _BACKWARD_PRIM.get(prim, prim)
         kwargs = kwargs or {}
         args, kwargs, routed = self.on_inputs(frame, pos, prim, func, args,
                                               kwargs)
@@ -650,21 +830,20 @@ class _EnumMode(_WalkMode):
         self.site_policy = site_policy
         self.sites: List[QuantizeSite] = []
         self.by_key: Dict = {}
-        self.executions = 0          # matched outputs met, repeats included
+        self.counts: List[int] = []  # executions of each site
 
     def on_output(self, frame, pos, out_idx, prim, val):
         if not val.dtype.is_floating_point:
             return val
         key = (frame.path, pos, out_idx)
-        if key in self.by_key:
-            self.executions += 1
-            return val
-        if self.site_policy.rule_for(frame.stack, prim, val.dtype) is None:
-            return val
-        self.executions += 1
-        self.by_key[key] = len(self.sites)
-        self.sites.append(
-            QuantizeSite(len(self.sites), frame.stack, prim, val.dtype))
+        i = self.by_key.get(key)
+        if i is None:
+            if self.site_policy.rule_for(frame.stack, prim, val.dtype) is None:
+                return val
+            i = self.by_key[key] = len(self.sites)
+            self.sites.append(QuantizeSite(i, frame.stack, prim, val.dtype))
+            self.counts.append(0)
+        self.counts[i] += 1
         return val
 
 
@@ -685,13 +864,15 @@ def enumerate_sites(fn, args, kwargs,
     irrelevant); any candidate policy whose matched set is a subset of the
     site policy's can then be lowered to a table via ``table_for``.
     ``index.executions`` is the number of site executions in one run (a
-    site in a body that runs N times counts N)."""
+    site in a body that runs N times counts N), ``index.counts`` the
+    executions of each site."""
     _check_plain_rules(site_policy, "site policies")
     mode = _EnumMode(site_policy)
     with _fresh_root(), mode:
         fn(*args, **kwargs)
     index = SiteIndex(mode.sites, mode.by_key)
-    index.executions = mode.executions
+    index.counts = mode.counts
+    index.executions = sum(mode.counts)
     return index
 
 

@@ -441,6 +441,8 @@ class _ShadowMode(_PolicyMode):
     shadow. Under mem-mode a dot-input rule quantizes no inputs and no row
     is routed into a fused kernel."""
 
+    backward_ok = False
+
     def __init__(self, policy: TruncationPolicy, threshold: float, impl: str,
                  table: LocationTable, traj_len: int = 0, traj_sites=None):
         super().__init__(policy, impl, table.plan)

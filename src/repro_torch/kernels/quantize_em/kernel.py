@@ -102,23 +102,56 @@ def static_params(fmt) -> _StaticParams:
         ovf_mode=c["ovf_mode"])
 
 
+def _dense(x) -> bool:
+    """Whether ``x``'s elements fill one block of memory with no gap and no
+    overlap (a permutation of a contiguous tensor)."""
+    expected = 1
+    for size, stride in sorted(((n, st) for n, st in zip(x.shape, x.stride())
+                                if n != 1), key=lambda p: p[1]):
+        if stride != expected:
+            return False
+        expected *= size
+    return True
+
+
+def _layout(x):
+    """``(source, destination, result)`` of one launch. The result has the
+    strides an elementwise op on ``x`` gives its output (``empty_like``),
+    as the plain versions' results do: a layout change would send the ops
+    that read a rounded value down other paths (another GEMM transposition,
+    other bits). A dense ``x`` is rounded in its own memory order, into a
+    result of the same strides; any other is made contiguous first and
+    copied into the result's layout after (``_finish``)."""
+    out = torch.empty_like(x)
+    if out.stride() == x.stride() and _dense(x):
+        return x, out, out
+    xc = x.contiguous()
+    tmp = torch.empty_like(xc)
+    return xc, tmp, tmp if out.is_contiguous() else out
+
+
+def _finish(dst, result):
+    if dst is not result:
+        result.copy_(dst)
+    return result
+
+
 def quantize_em_static(x, fmt):
     """Round every element of CUDA tensor ``x`` onto the grid of ``fmt``
-    (an ``FPFormat``); returns a new tensor of the same shape and dtype.
-    A non-contiguous input is made contiguous first (one extra copy)."""
+    (an ``FPFormat``); returns a new tensor of the same shape, dtype and
+    strides (``_layout``)."""
     _check_input(x, "quantize_em_static")
-    x = x.contiguous()
-    out = torch.empty_like(x)
+    src, dst, result = _layout(x)
     n = x.numel()
     if n == 0:
-        return out
+        return result
     with torch.cuda.device(x.device):
         err = _lib().quantize_em_static(
-            x.data_ptr(), out.data_ptr(), n, _DTYPE_CODE[x.dtype],
+            src.data_ptr(), dst.data_ptr(), n, _DTYPE_CODE[x.dtype],
             static_params(fmt), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "quantize_em_static")
     quantize_em_static.launches += 1
-    return out
+    return _finish(dst, result)
 
 
 def quantize_em_dynamic(x, table, site: int = 0):
@@ -126,7 +159,7 @@ def quantize_em_dynamic(x, table, site: int = 0):
     a contiguous int32 CUDA tensor of shape ``(num_sites, 4)`` or ``(4,)``
     holding ``(exp_bits, man_bits, saturate, ieee_inf | (bit+1) << 1)``.
     The row is read on the device; the fault bit it may carry is XORed in
-    the same pass. A non-contiguous ``x`` is made contiguous first."""
+    the same pass. The result has the strides of ``x`` (``_layout``)."""
     _check_input(x, "quantize_em_dynamic")
     if (not isinstance(table, torch.Tensor) or table.device != x.device
             or table.dtype != torch.int32 or not table.is_contiguous()
@@ -137,19 +170,18 @@ def quantize_em_dynamic(x, table, site: int = 0):
     rows = table.numel() // 4
     if not 0 <= site < rows:
         raise IndexError(f"site {site} outside a table of {rows} rows")
-    x = x.contiguous()
-    out = torch.empty_like(x)
+    src, dst, result = _layout(x)
     n = x.numel()
     if n == 0:
-        return out
+        return result
     with torch.cuda.device(x.device):
         err = _lib().quantize_em_dynamic(
-            x.data_ptr(), out.data_ptr(), n, _DTYPE_CODE[x.dtype],
+            src.data_ptr(), dst.data_ptr(), n, _DTYPE_CODE[x.dtype],
             table.data_ptr(), int(site),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "quantize_em_dynamic")
     quantize_em_dynamic.launches += 1
-    return out
+    return _finish(dst, result)
 
 
 quantize_em_static.launches = 0

@@ -18,13 +18,14 @@ op to a policy), never by writing into the old cache in place.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.interpreter import loop_body, scope
+from repro_torch.core.interpreter import loop_body, remat, scope
 from repro_torch.models import common
 from repro_torch.models.common import ParamDef
 
@@ -66,47 +67,57 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if causal and isinstance(window, int):
         n_win = min(nk, (window + q_chunk - 1 + kv_chunk - 1) // kv_chunk + 1)
 
+    def kv_step(m, l, acc, q_blk, k, v, qp, kj):
+        k0 = kj * kv_chunk
+        k_blk = k[:, :, k0:k0 + kv_chunk]
+        v_blk = v[:, :, k0:k0 + kv_chunk]
+        kp = pos[k0:k0 + kv_chunk]
+        s = common.einsum("bhgqd,bhkd->bhgqk", q_blk.to(torch.float32),
+                          k_blk.to(torch.float32)) * scale
+        mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (qp[:, None] >= kp[None, :])
+        if window is not None:
+            mask = mask & ((qp[:, None] - kp[None, :]) < window)
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + common.einsum(
+            "bhgqk,bhkd->bhgqd", p, v_blk.to(torch.float32))
+        return m_new, l, acc
+
+    def q_step(q_blk, k, v, qi):
+        q0 = qi * q_chunk
+        qp = pos[q0:q0 + q_chunk]
+        start = 0
+        if n_win < nk:
+            start = min(max((q0 - (window - 1)) // kv_chunk, 0), nk - n_win)
+        m = torch.full((B, Hkv, G, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Hkv, G, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, Hkv, G, q_chunk, Dv), dtype=torch.float32,
+                          device=q.device)
+        for kj in range(start, start + n_win):
+            with loop_body("kv_chunk"):
+                # the chunk's indices are bound now: the recompute runs in
+                # the backward pass, after the loop has moved on
+                m, l, acc = remat(functools.partial(kv_step, qp=qp, kj=kj),
+                                  m, l, acc, q_blk, k, v)
+        return acc / torch.clamp(l, min=1e-30)[..., None]
+
+    # as in the reference, each q chunk and each kv chunk is recomputed in
+    # the backward pass (flash-style: no (Cq, Ck) block is kept per chunk
+    # pair); without gradients ``remat`` is a plain call
     outs = []
     for qi in range(nq):
         with loop_body("q_chunk"):
             q0 = qi * q_chunk
             q_blk = qg[:, :, :, q0:q0 + q_chunk]        # (B,Hkv,G,Cq,Dk)
-            qp = pos[q0:q0 + q_chunk]
-            start = 0
-            if n_win < nk:
-                start = min(max((q0 - (window - 1)) // kv_chunk, 0),
-                            nk - n_win)
-
-            m = torch.full((B, Hkv, G, q_chunk), NEG_INF,
-                           dtype=torch.float32, device=q.device)
-            l = torch.zeros((B, Hkv, G, q_chunk), dtype=torch.float32,
-                            device=q.device)
-            acc = torch.zeros((B, Hkv, G, q_chunk, Dv), dtype=torch.float32,
-                              device=q.device)
-            for kj in range(start, start + n_win):
-                with loop_body("kv_chunk"):
-                    k0 = kj * kv_chunk
-                    k_blk = k[:, :, k0:k0 + kv_chunk]
-                    v_blk = v[:, :, k0:k0 + kv_chunk]
-                    kp = pos[k0:k0 + kv_chunk]
-                    s = common.einsum("bhgqd,bhkd->bhgqk",
-                                      q_blk.to(torch.float32),
-                                      k_blk.to(torch.float32)) * scale
-                    mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
-                                      device=q.device)
-                    if causal:
-                        mask = mask & (qp[:, None] >= kp[None, :])
-                    if window is not None:
-                        mask = mask & ((qp[:, None] - kp[None, :]) < window)
-                    s = torch.where(mask[None, None, None], s, NEG_INF)
-                    m_new = torch.maximum(m, s.amax(dim=-1))
-                    p = torch.exp(s - m_new[..., None])
-                    corr = torch.exp(m - m_new)
-                    l = l * corr + p.sum(dim=-1)
-                    acc = acc * corr[..., None] + common.einsum(
-                        "bhgqk,bhkd->bhgqd", p, v_blk.to(torch.float32))
-                    m = m_new
-            outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+            outs.append(remat(functools.partial(q_step, qi=qi), q_blk, k, v))
 
     # outs: nq x (B, Hkv, G, Cq, Dv) -> (B, Hq, S, Dv)
     out = torch.cat(outs, dim=3).reshape(B, Hq, S, Dv)

@@ -27,8 +27,8 @@ from repro_torch.core.interpreter import loop_body, scope
 from repro_torch.models import attention
 from repro_torch.models.common import ParamDef, resolve_device, torch_dtype
 from repro_torch.models.transformer import (
-    _positions, _stack_caches, _tree_index, apply_norm, mlp_forward,
-    mlp_param_defs, norm_defs, stacked, token_nll,
+    _maybe_remat, _positions, _stack_caches, _tree_index, apply_norm,
+    mlp_forward, mlp_param_defs, norm_defs, stacked, token_nll, unstack,
 )
 
 # fixed source length for decode cells (prompt memory)
@@ -71,16 +71,19 @@ def encode(params, src_embeds, cfg: ArchConfig):
     x = src_embeds.to(torch_dtype(cfg.dtype))
     B, T = x.shape[:2]
     positions = _positions({}, cfg, T, B, x.device)
-    for i in range(cfg.enc_layers):
+
+    def body(x, p_l):
+        h = apply_norm(p_l["norm1"], x, cfg)
+        with scope("self_attn"):
+            y, _ = attention.gqa_forward(p_l["attn"], h, cfg,
+                                         positions=positions, causal=False)
+        x = x + y
+        h = _norm_again("norm2", p_l, x, cfg)
+        return x + mlp_forward(p_l["mlp"], h, cfg)
+
+    for p_l in unstack(params["enc_layers"], cfg.enc_layers):
         with scope("enc_layer", loop=True):
-            p_l = _tree_index(params["enc_layers"], i)
-            h = apply_norm(p_l["norm1"], x, cfg)
-            with scope("self_attn"):
-                y, _ = attention.gqa_forward(p_l["attn"], h, cfg,
-                                             positions=positions, causal=False)
-            x = x + y
-            h = _norm_again("norm2", p_l, x, cfg)
-            x = x + mlp_forward(p_l["mlp"], h, cfg)
+            x = _maybe_remat(cfg, body, x, p_l)
     with scope("enc_norm"):
         return apply_norm(params["enc_norm"], x, cfg)
 
@@ -144,10 +147,13 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
         x = params["embed"].to(torch_dtype(cfg.dtype))[batch["tokens"]]
     B, S = x.shape[:2]
     positions = _positions({}, cfg, S, B, x.device)
-    for i in range(cfg.n_layers):
+
+    def body(x, p_l, memory):
+        return _dec_layer(cfg, p_l, x, memory, positions)[0]
+
+    for p_l in unstack(params["dec_layers"], cfg.n_layers):
         with scope("dec_layer", loop=True):
-            x, _ = _dec_layer(cfg, _tree_index(params["dec_layers"], i), x,
-                              memory, positions)
+            x = _maybe_remat(cfg, body, x, p_l, memory)
     if last_only:
         x = x[:, -1:]
     with scope("final_norm"):

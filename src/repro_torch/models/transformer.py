@@ -27,6 +27,19 @@ sites; without ``remat`` each call is inlined with sites of its own, and
 here each runs in a one-trip frame of its own. Without ``scan_layers`` the
 scopes are ``layer0``, ``layer1``, … and the sites distinct.
 
+**Remat.** The reference's ``remat`` wraps each scanned (and each global)
+layer in ``jax.checkpoint``, and its blockwise attention checkpoints every q
+chunk and every kv chunk whatever ``remat`` says. The port takes route (a):
+the same regions run under ``core.interpreter.remat``, which is
+``torch.utils.checkpoint`` (non-reentrant) when autograd records and a plain
+call otherwise. The recompute re-enters the region's scopes on whatever
+thread the autograd engine uses, with sites of its own, so a
+differentiated loss has the reference's recomputed sites
+(``tests/test_torch_grad_scopes.py``) and a full-depth train step keeps no
+layer's activations but its input. The stacked layers are split once
+(``unstack``): the stack's gradient is one stacking of the layers', as the
+reference's scan transposes it.
+
 **Decode** (``init_cache``, ``decode_step``) keeps the reference's scopes,
 which are not the forward's: every stacked layer runs under ``layer`` (also
 without ``scan_layers``, and hymba's global layers too), the attention,
@@ -47,7 +60,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.interpreter import loop_body, scope
+from repro_torch.core.interpreter import loop_body, remat, scope
 from repro_torch.models import attention, moe as moe_mod, ssm
 from repro_torch.models.common import (
     ParamDef, ACTIVATIONS, rmsnorm, layernorm, map_defs, resolve_device,
@@ -288,6 +301,17 @@ def _tree_index(tree, i):
     return tree[i]
 
 
+def unstack(tree, n: int):
+    """The ``n`` layers of a stacked tree, split once (``torch.unbind``):
+    the gradient of the stack is then one stacking of the layers' gradients,
+    what the reference's scan transposes to, not ``n - 1`` accumulations of
+    per-layer selects."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return torch.unbind(tree)
+
+
 def _embed_inputs(params, batch, cfg: ArchConfig):
     """tokens -> embeddings, or pass through stub-frontend embeddings."""
     dtype = torch_dtype(cfg.dtype)
@@ -322,8 +346,15 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
             x, _ = layer_forward(cfg, params["lead_layers"][i], x,
                                  positions, "dense_lead", is_global=None)
 
-    stack = params["layers"]
+    layers = unstack(params["layers"], cfg.n_layers - _n_lead(cfg))
     kind = _stack_kind(cfg)
+
+    def body(is_global):
+        def run(x, p_l):
+            return layer_forward(cfg, p_l, x, positions, kind,
+                                 is_global=is_global)[0]
+        return run
+
     if cfg.scan_layers:
         for seg, lo, hi in segments(cfg):
             if seg == "scan":
@@ -331,19 +362,15 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
                     # one layer is one trip of the reference's scan: one
                     # trajectory step here
                     with scope("layer", loop=True):
-                        x, _ = layer_forward(cfg, _tree_index(stack, i), x,
-                                             positions, kind, is_global=False)
+                        x = _maybe_remat(cfg, body(False), x, layers[i])
             else:
                 with _global_frame(cfg, lo), scope("global_layer"):
-                    x, _ = layer_forward(cfg, _tree_index(stack, lo), x,
-                                         positions, kind, is_global=True)
+                    x = _maybe_remat(cfg, body(True), x, layers[lo])
     else:
         globals_set = {i - _n_lead(cfg) for i in cfg.global_layers}
         for i in range(cfg.n_layers - _n_lead(cfg)):
             with scope(f"layer{i}"):
-                x, _ = layer_forward(cfg, _tree_index(stack, i), x,
-                                     positions, kind,
-                                     is_global=i in globals_set)
+                x = body(i in globals_set)(x, layers[i])
 
     if last_only:
         x = x[:, -1:]
@@ -354,6 +381,12 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
                 else params["lm_head"])
         logits = x.to(torch.float32) @ head.to(torch.float32)
     return logits
+
+
+def _maybe_remat(cfg: ArchConfig, fn, *args):
+    """A scanned or global layer under ``remat``: recomputed in the backward
+    pass, as the reference's ``jax.checkpoint``-ed scan body is."""
+    return remat(fn, *args) if cfg.remat else fn(*args)
 
 
 def _global_frame(cfg: ArchConfig, idx: int):

@@ -72,7 +72,15 @@ def test_every_module_is_found():
                  "repro_torch.guardrails", "repro_torch.guardrails.log",
                  "repro_torch.serving", "repro_torch.serving.engine",
                  "repro_torch.serving.shadow", "repro_torch.launch",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.launch.train",
+                 "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.optim.compression", "repro_torch.optim.tree",
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.checkpointer",
+                 "repro_torch.train", "repro_torch.train.trainer",
+                 "repro_torch.distributed",
+                 "repro_torch.distributed.fault_tolerance"):
         assert want in mods
 
 
@@ -90,7 +98,10 @@ def test_every_module_is_found():
                                    "repro_torch.artifacts",
                                    "repro_torch.guardrails",
                                    "repro_torch.serving",
-                                   "repro_torch.launch.serve"])
+                                   "repro_torch.launch.serve",
+                                   "repro_torch.launch.train",
+                                   "repro_torch.train",
+                                   "repro_torch.checkpoint"])
 def test_importing_the_port_pulls_in_no_jax_and_no_reference_package(first):
     """In a fresh interpreter, whichever module comes first (the quantizer
     and the core import each other's submodules), import every module of
@@ -167,6 +178,15 @@ def test_entry_points_do_not_pick_the_cpu_on_their_own():
     h = truncate_sweep(lambda: torch.ones(2) * 2.0,
                        TruncationPolicy.everywhere("e5m2"), device="cpu")()
     assert h.num_sites == 1
+    from repro_torch.train import TrainConfig, init_opt_state
+    params = m.init(device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_opt_state(m, params, TrainConfig())
+    assert init_opt_state(m, params, TrainConfig(),
+                          device="cpu")["step"].device.type == "cpu"
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "h2o-danube-1.8b", "--steps", "1"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_device():
