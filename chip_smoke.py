@@ -6,7 +6,7 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's ten paths:
+plain PyTorch version on the card, then drives the port's twelve paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
@@ -31,8 +31,9 @@ plain PyTorch version on the card, then drives the port's ten paths:
     uniform-low strawman, a swept ladder against ``truncate``, and the same
     search on the CPU (``device="cpu"``) with the same assignments;
   * the trajectory path — ``profile_trajectory`` of h2o-danube-1.8b at full
-    width and depth (one layer a step) under the main path's policy and
-    with every float result at e8m3, held to ``truncate`` and ``memtrace``;
+    width, depth cut to 12 layers (one layer a step) under the main path's
+    policy and with every float result at e8m3, held to ``truncate`` and
+    ``memtrace``;
   * the artifact path — the profile -> warm start -> publish -> deploy
     loop: the cold search of the depth-4 model, a trajectory profile of its
     frontier lowered to ``ladder_hints``, the artifact through a registry in
@@ -41,7 +42,8 @@ plain PyTorch version on the card, then drives the port's ten paths:
     and the three mini-apps warm-started from ``warm_hints()`` and from
     their cold result's artifact;
   * the models path — every model family's forward: olmoe-1b-7b (64
-    experts, top-8) at full width and depth, bf16, 1 x 4096 tokens, through
+    experts, top-8) at full width, depth cut to 8 of its 16 layers, bf16,
+    1 x 4096 tokens, through
     ``truncate`` scoped to its experts and to its router, three swept
     tables and ``memtrace`` of the router policy; then glm4-9b,
     deepseek-coder-33b, internlm2-20b, qwen2-vl-7b (three position streams)
@@ -61,8 +63,8 @@ plain PyTorch version on the card, then drives the port's ten paths:
     their rings) against its forward and one scoped ``truncate`` held to
     ``impl='ref'``, and h2o-danube-1.8b's ring cache decoded 4,112 steps,
     past its 4,096-token window;
-  * the train path — training h2o-danube-1.8b at full width and depth,
-    bf16 parameters with the f32 master copy, 1 x 2048 tokens from the
+  * the train path — training h2o-danube-1.8b at full width, depth cut to
+    8 layers (``--layers 24`` runs it whole), bf16 parameters with the f32 master copy, 1 x 2048 tokens from the
     seeded pipeline: plain steps (twice, deterministic), the train step
     truncated under ``scope:**/mlp=e5m7`` (loss and gradients, every
     backward op under its forward scope) held bit for bit to
@@ -72,7 +74,20 @@ plain PyTorch version on the card, then drives the port's ten paths:
     launches = its site executions and its sites = a CPU enumeration's (the
     backward runs on autograd's device thread on the card), and
     ``launch.train --production`` with one restore, its checkpoint restored
-    bit for bit (at 2 layers unless ``--layers`` is given) —
+    bit for bit (at 2 layers unless ``--layers`` is given);
+  * the fp8 path — ``truncate(model.loss, P, native_fp8=True)`` of
+    h2o-danube-1.8b at full width, depth cut to 12 layers, 1 x 8192
+    tokens, ``P`` an e4m3
+    ``quantize_dot_inputs`` rule on the MLP's products: every one through
+    the fp8 dot kernel (``kernels/csrc/fp8_dot.cu``), the loss held to the
+    emulated ``truncate(model.loss, P)``, launches = matched dot sites;
+  * the guard path — runtime guardrails on h2o-danube-1.8b at full width,
+    depth cut to 2 layers: ``launch.train --production --guardrails
+    --policy-artifact ... --inject-fault 0:1:bitflip`` (the fault through
+    the dynamic quantizer's fault channel, caught, the row widened, one
+    rollback, finite to the end with one enumeration), a fault-free
+    ``GuardedTrainer`` bit-equal to the unguarded hot-swap step, and the
+    guarded Sod loop recovering from overflow faults —
 
 and times the kernels and the forward. Nothing is caught: any failed phase
 ends the run with a traceback and a non-zero exit code.
@@ -85,14 +100,17 @@ one library call that computes the same function (where there is one). The
 last line is ``{"ok": true, "device": {...}}``.
 
 Options (for debugging at a smaller size; the defaults are the full run):
-``--layers N`` cuts the depth (the search and artifact paths' is 4 and the
-mem path's 12 unless given; on the models path, olmoe-1b-7b's),
+``--layers N`` cuts the depth (the search and artifact paths' is 4, the
+mem, trajectory and fp8 paths' 12, the train path's 8 and the guard
+path's 2 unless given; on the models path, olmoe-1b-7b's, 8 unless
+given),
 ``--seq S`` the sequence length of the
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,mem_path,traj_path,fused_path,small_ref,
 times,reconcile,search_path,apps_path,artifact_path,models_path,serve_path,
-train_path``
+train_path,fp8_path,guard_path`` (``kernels`` includes the fp8 kernel's
+checks, ``times`` its times)
 or adds
 ``profile`` (device time by kernel name for one plain and one swept forward,
 a decode tick, a train step; ``profile_train`` the train step alone),
@@ -127,6 +145,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12        # dense tensor-core rate
+PEAK_FP8_OPS_PER_S = 1979e12        # dense tensor-core rate
 # instructions one element costs in quantize_one (integer and f32, counted
 # from the source: ~8 for the mantissa trick, ~6 subnormal branch, ~6
 # overflow, ~4 specials and fault, ~8 widen/narrow/address)
@@ -138,6 +157,8 @@ REPLACES = {
     "quantize_em_dynamic": "src/repro/kernels/quantize_em/kernel.py:121",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:84",
     "wkv6": "src/repro/kernels/rwkv6/kernel.py:75",
+    # not a pallas_call: the reference's fp8 dot_general, left to XLA
+    "fp8_dot": "src/repro/kernels/fp8_dot.py:53",
 }
 
 RUNG_M = (23, 15, 10, 7, 5, 3, 2, 1)
@@ -248,17 +269,18 @@ def phase_env():
 
 def phase_build():
     from repro_torch import kernels
+    from repro_torch.kernels import fp8_dot as f8
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.quantize_em import kernel as qk
     from repro_torch.kernels.rwkv6 import kernel as wk
     t0 = time.perf_counter()
     builds = kernels.start_builds()   # one nvcc per library, all together
     paths = [b.wait() for b in builds]
-    for m in (qk, fk, wk):
+    for m in (qk, fk, wk, f8):
         m._lib()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          libraries=[os.path.relpath(str(p)) for p in paths],
-         sources=[qk.SOURCE, fk.SOURCE, wk.SOURCE])
+         sources=[qk.SOURCE, fk.SOURCE, wk.SOURCE, f8.SOURCE])
 
 
 def phase_kernels(device):
@@ -1009,6 +1031,9 @@ def phase_mem_path(device, layers, seq):
 # --------------------------------------------------------------------------
 
 MODELS_SEQ = 4096          # olmoe-1b-7b's context length
+# olmoe-1b-7b's default depth, for the default run's 600 s budget;
+# --layers 16 runs it whole
+MODELS_LAYERS = 8
 FAMILY_SEQ = 2048
 # every other family at full width, depth cut (each cut listed), with the
 # block it is profiled by
@@ -1063,8 +1088,9 @@ def matched_executions(fn, policy, args):
 
 def phase_models_path(device, layers):
     """Every model family's forward through ``truncate``, ``truncate_sweep``
-    and ``memtrace``: olmoe-1b-7b at full width and depth (``--layers`` cuts
-    it), then each other family at full width with its depth cut. Each
+    and ``memtrace``: olmoe-1b-7b at full width, depth cut to
+    ``MODELS_LAYERS`` (``--layers`` sets it; 16 is full depth), then each
+    other family at full width with its depth cut. Each
     ``truncate`` loss is held bit for bit to the same call with
     ``impl='ref'`` (kernel against plain version), ``memtrace``'s to
     ``truncate``'s, the static kernel's launches to the matched site
@@ -1078,9 +1104,7 @@ def phase_models_path(device, layers):
     from repro_torch.models.moe import capacity_of
 
     seq = MODELS_SEQ
-    cfg = get_config("olmoe-1b-7b")
-    if layers is not None:
-        cfg = cfg.replace(n_layers=layers)
+    cfg = get_config("olmoe-1b-7b").replace(n_layers=layers or MODELS_LAYERS)
     model = Model(cfg)
     params = model.init(seed=0)
     batch = family_batch(cfg, 1, seq, device)
@@ -1231,7 +1255,8 @@ SERVE_POLICY = "scope:**/mlp=e5m7"
 SERVE_ARGV = ["--arch", "glm4-9b", "--production", "--batch", "4",
               "--requests", "8", "--prompt-len", "32", "--new-tokens", "16",
               "--max-seq", "128", "--policy", SERVE_POLICY,
-              "--shadow-rate", "0.25"]
+              # seed 0's draws sample request 4 alone (0.4237 < 0.43)
+              "--shadow-rate", "0.43"]
 SERVE_BATCH, SERVE_SEQ = 4, 128
 # every other family's decode at full width, depth cut as on the models path
 # (olmoe-1b-7b at full depth, as there), with the blocks its scoped decode
@@ -1286,12 +1311,13 @@ def serve_tokens(eng, work):
     return [h.out_tokens for h in handles], [h.status for h in handles]
 
 
-def ms_per_tick(eng, vocab, ticks=10):
-    """Wall ms of one tick with all four slots decoding (the same four
-    requests for every engine), after two ticks of warm-up (the first is
-    the wrapper's walk). Each tick ends in the read-back of its logits."""
+def ms_per_tick(eng, vocab, ticks=10, busy=SERVE_BATCH):
+    """Wall ms of one tick with ``busy`` slots decoding (all four by
+    default; the same requests for every engine), after two ticks of
+    warm-up (the first is the wrapper's walk). Each tick ends in the
+    read-back of its logits."""
     r = np.random.RandomState(1)
-    for _ in range(SERVE_BATCH):
+    for _ in range(busy):
         eng.submit(r.randint(1, vocab, 24), max_new_tokens=64)
     for _ in range(2):
         eng.step()
@@ -1415,11 +1441,27 @@ def phase_serve_path(device):
                       max_seq_len=SERVE_SEQ, **kw)
 
     info = {}
+    # the CLI's shadowed requests served again by a truncated engine: the
+    # shadow lane serves the truncated tokens (alone in the engine: the
+    # isolation check below holds a request's tokens to its batch)
+    shadowed_ids = sorted(i for i in done if done[i].shadowed)
+    with torch.no_grad():
+        again, _ = serve_tokens(engine(policy=policy), [
+            (done[i].prompt, done[i].max_new_tokens) for i in shadowed_ids])
+    info["cli_shadowed_requests"] = shadowed_ids
+    info["cli_shadowed_equal_truncated"] = \
+        [done[i].out_tokens for i in shadowed_ids] == again
+    check(shadowed_ids and info["cli_shadowed_equal_truncated"],
+          "serve CLI: shadowed requests", info)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         tick_ms = {
             "plain": ms_per_tick(engine(), cfg.vocab),
+            # the decode step runs at DECODE_ROWS rows whatever is busy
+            "plain_1_busy": ms_per_tick(engine(), cfg.vocab, busy=1),
+            "plain_batch1_engine": ms_per_tick(engine(batch_size=1),
+                                               cfg.vocab, busy=1),
             "truncate": ms_per_tick(engine(policy=policy), cfg.vocab),
             "shadow": ms_per_tick(engine(policy=policy, shadow=ShadowConfig(
                 rate=1.0)), cfg.vocab)}
@@ -1492,6 +1534,10 @@ def phase_serve_path(device):
     emit("serve_path", model=cfg.name, policy=SERVE_POLICY, **info)
     check(info["shadowed_equal_truncated"], "shadowed != truncated tokens")
     check(info["shadow_cache_size"] == 1, info)
+    # at one decode row count (Engine.rows) a batch-1 engine serves the
+    # 4-slot engine's tokens (the reference's isolation contract)
+    check(info["continuous_equal_batch1_isolation"],
+          "batch-1 isolation", info)
     check(info["continuous_equal_same_batch_isolation"],
           "continuous != isolated decoding at the same batch size")
     check(statuses == ["ok"] * len(work), statuses)
@@ -2079,9 +2125,15 @@ def phase_apps_path(device):
 
 
 
+# the trajectory path's default depth, for the default run's 600 s budget
+# (65 s at 24 layers); --layers 24 runs it whole
+TRAJ_LAYERS = 12
+
+
 def phase_traj_path(device, layers, seq):
     """Trajectory profiling: ``profile_trajectory(model.loss, ·)`` of the
-    full-width model (one layer a step: the layer loop is the model's
+    full-width model, depth cut to ``TRAJ_LAYERS`` (``--layers`` sets it;
+    24 is full depth), one layer a step: the layer loop is the model's
     outermost loop) under the main path's scoped e5m7 policy and with every
     float result at e8m3. Held to ``truncate`` (the loss, bit for bit) and
     ``memtrace`` (the totals, bit for bit), to the step structure (one row
@@ -2093,9 +2145,8 @@ def phase_traj_path(device, layers, seq):
                                   profile_trajectory, truncate)
     from repro_torch.models import Model
 
-    cfg = get_config("h2o-danube-1.8b")
-    if layers is not None:
-        cfg = cfg.replace(n_layers=layers)
+    cfg = get_config("h2o-danube-1.8b").replace(
+        n_layers=layers or TRAJ_LAYERS)
     model = Model(cfg)
     params = model.init(seed=0)
     batch = make_batch(cfg, 1, seq, device)
@@ -2400,6 +2451,9 @@ TRAIN_SEQ = 2048
 # 1e-3 and 3e-4 the second step overshoots on the one batch (PERF.md)
 TRAIN_LR = 1e-4
 TRAIN_STEPS = 3
+# the default run's depth: the steps at 8 layers keep the run under its
+# 600 s budget beside the fp8 and guard paths; --layers 24 runs them whole
+TRAIN_LAYERS = 8
 TRAIN_IO_LAYERS = 2        # the CLI run and its checkpoint
 TRAIN_POLICY = "scope:**/mlp=e5m7"
 TRAIN_SWAP = "scope:**/attn/**=e8m3"
@@ -2456,8 +2510,9 @@ def aten_names(fn) -> set:
 
 
 def phase_train_path(device, layers):
-    """Training: h2o-danube-1.8b at full width (``--layers`` cuts the
-    depth), bf16 parameters with the f32 master copy, B = 1 x 2048 tokens
+    """Training: h2o-danube-1.8b at full width, depth cut to
+    ``TRAIN_LAYERS`` (``--layers`` sets it; 24 is full depth), bf16
+    parameters with the f32 master copy, B = 1 x 2048 tokens
     from the synthetic pipeline. Three plain steps (twice: the backward must
     be deterministic); three ``make_train_step`` steps under the scoped
     e5m7 policy held bit for bit to ``impl='ref'``, the static quantizer's
@@ -2481,9 +2536,8 @@ def phase_train_path(device, layers):
                                    make_hotswap_train_step, make_train_step,
                                    value_and_grad)
 
-    cfg = get_config("h2o-danube-1.8b")
-    if layers is not None:
-        cfg = cfg.replace(n_layers=layers)
+    cfg = get_config("h2o-danube-1.8b").replace(
+        n_layers=layers or TRAIN_LAYERS)
     model = Model(cfg)
     batch = to_device(Pipeline(DataConfig(
         seq_len=TRAIN_SEQ, global_batch=1, vocab=cfg.vocab)).next())
@@ -3073,6 +3127,444 @@ def phase_isa():
           "isa: the path kernel spills", path)
 
 
+# ---------------------------------------------------------------------------
+# the fp8 dot kernel: against its plain version, timed, and on its path
+# ---------------------------------------------------------------------------
+
+# h2o-danube-1.8b's MLP products at S = 8192: x @ wi (gate and up fused),
+# h @ wo
+FP8_MLP_SHAPES = {"mlp_wi": (8192, 2560, 13824), "mlp_wo": (8192, 6912, 2560)}
+# native against emulated loss on the fp8 path: both sum the same exact
+# products of e4m3 values in f32 (the kernel in k order, cuBLAS's bf16 GEMM
+# in its own) and round each MLP product once to bf16, so an element may
+# land one bf16 step (2^-8 relative) apart; the mean loss over 8192 tokens
+# moves far less
+FP8_LOSS_RTOL = 1e-3
+# the fp8 path's default depth, for the default run's 600 s budget (24
+# layers took 24.8 s); --layers 24 runs it whole
+FP8_LAYERS = 12
+
+
+def fp8_operand(g, shape, device, scale, saturate=True, spread=0):
+    """An operand on the e4m3 grid. ``spread`` scales each element by a
+    random power of two in [2^-spread, 2^spread): over a wide exponent
+    range the f32 sums of the products are no longer exact, and the
+    summation order shows."""
+    from repro_torch.kernels import fp8_dot as f8
+    x = randn(g, shape, device, scale=scale)
+    if spread:
+        x = x * torch.exp2(torch.randint(-spread, spread, shape, generator=g,
+                                         device=device).to(torch.float32))
+    return f8.encode_e4m3(f8.quantize_dot_operand(x, saturate=saturate))
+
+
+def fp8_hold(a, b, label):
+    """The kernel against its plain version on fp8 operands ``a`` (batch,
+    M, K) and ``b`` (batch, K, N): NaNs where the plain version has them,
+    every finite element within ``K * 2^-23 * (|a| @ |b|)`` (both sum exact
+    products in f32, each within ``K * 2^-24`` of the exact dot), and the
+    bf16 result the f32 one rounded once."""
+    from repro_torch.kernels import fp8_dot as f8
+    got = f8.fp8_dot_cuda(a, b, torch.float32)
+    want = f8.fp8_dot_ref(a, b, torch.float32)
+    scale = f8.fp8_dot_ref(a.to(torch.float32).abs().to(f8.F8_DTYPE),
+                           b.to(torch.float32).abs().to(f8.F8_DTYPE))
+    bound = a.shape[-1] * 2.0 ** -23 * scale
+    nan_got, nan_want = torch.isnan(got), torch.isnan(want)
+    fin = ~nan_want
+    err = (got - want).abs()[fin]
+    over = float((err / bound[fin].clamp_min(1e-30)).max()) if err.numel() \
+        else 0.0
+    within = bool((err <= bound[fin]).all())
+    got16 = f8.fp8_dot_cuda(a, b, torch.bfloat16)
+    bf16_once = bit_mismatches(got16, got.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    return dict(label=label, a=list(a.shape), b=list(b.shape),
+                b_strides=list(b.stride()),
+                max_abs_err=float(err.max()) if err.numel() else 0.0,
+                max_err_over_bound=over, within_bound=within,
+                nan_equal=bool(torch.equal(nan_got, nan_want)),
+                nans=int(nan_want.sum()), bf16_mismatches=bf16_once)
+
+
+def phase_fp8_kernels(device):
+    """The fp8 dot kernel against its plain version on the card: the MLP
+    products of h2o-danube-1.8b, a ragged small shape, a batched one with a
+    transposed right operand, and operands out of e4m3's range, saturated
+    and not (NaN storage where the reference stores NaN)."""
+    from repro_torch.kernels import fp8_dot as f8
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    cases = []
+    for label, (m, k, n) in FP8_MLP_SHAPES.items():
+        a = fp8_operand(g, (1, m, k), device, 2.0, spread=4)
+        b = fp8_operand(g, (1, k, n), device, 0.05, spread=4)
+        cases.append(fp8_hold(a, b, label))
+        del a, b
+        torch.cuda.empty_cache()
+    cases.append(fp8_hold(fp8_operand(g, (1, 77, 131), device, 3.0),
+                          fp8_operand(g, (1, 131, 45), device, 3.0),
+                          "ragged"))
+    bt = fp8_operand(g, (6, 130, 96), device, 1.0, spread=4)
+    cases.append(fp8_hold(fp8_operand(g, (6, 200, 96), device, 1.0,
+                                      spread=4),
+                          bt.transpose(1, 2), "batched_rhs_transposed"))
+    # out of range: |x| up to 1e4 and infinities, through fp8_dot_general
+    specials = []
+    for sat in (True, False):
+        # in e4m3's range (|x| <= 448) but for the planted values
+        x = randn(g, (3, 64, 96), device, scale=60.0)
+        y = randn(g, (3, 96, 40), device, scale=60.0)
+        x[:, ::7, ::5] = 1e4
+        x[0, 3, 3] = float("inf")
+        y[1, 5, 7] = -float("inf")
+        enc = f8.encode_e4m3(f8.quantize_dot_operand(x, saturate=sat))
+        enc_cpu = f8.encode_e4m3(f8.quantize_dot_operand(x.cpu(),
+                                                         saturate=sat))
+        card_bytes = enc.view(torch.uint8).cpu()
+        cpu_bytes = enc_cpu.view(torch.uint8)
+        nan = (cpu_bytes & 0x7F) == 0x7F
+        dn = (((2,), (1,)), ((0,), (0,)))
+        got = f8.fp8_dot_general(x, y, dn, saturate=sat)
+        want = f8.fp8_dot_general(x, y, dn, saturate=sat, impl="ref")
+        held = fp8_hold(enc, f8.encode_e4m3(
+            f8.quantize_dot_operand(y, saturate=sat)),
+            f"out_of_range_saturate_{sat}")
+        specials.append(dict(
+            held, saturate=sat,
+            storage_bytes_equal_cpu=bool(torch.equal(card_bytes[~nan],
+                                                     cpu_bytes[~nan])),
+            nan_storage_equal_cpu=bool(torch.equal(
+                (card_bytes & 0x7F) == 0x7F, nan)),
+            stored_nans=int(nan.sum()),
+            general_equal_held=bool(torch.equal(torch.isnan(got),
+                                                torch.isnan(want)))))
+    torch.cuda.synchronize()
+    emit("fp8_kernels", cases=cases + specials,
+         tolerance="NaN where the plain version has NaN; elementwise "
+                   "|kernel - plain| <= K * 2^-23 * (|Aq| @ |Bq|); the "
+                   "bf16 result = the f32 result rounded once")
+    bad = [c for c in cases + specials
+           if not (c["within_bound"] and c["nan_equal"]
+                   and c["bf16_mismatches"] == 0
+                   and c.get("storage_bytes_equal_cpu", True)
+                   and c.get("nan_storage_equal_cpu", True)
+                   and c.get("general_equal_held", True))]
+    check(not bad, "fp8 kernel against its plain version", bad)
+    check(all(c["nans"] > 0 for c in specials if not c["saturate"]),
+          "fp8: the non-saturating case stores no NaN", specials)
+    return {"fp8_dot": max(c["max_abs_err"] for c in cases)}
+
+
+def phase_fp8_times(device):
+    """The fp8 kernel at the MLP shapes (bf16 result, as the path writes
+    it) beside its bound, its plain version, ``torch._scaled_mm`` (the one
+    library call of the same function, unit scales) and the bf16
+    ``torch.matmul`` of the same shape."""
+    from repro_torch.kernels import fp8_dot as f8
+    g = torch.Generator(device=device)
+    g.manual_seed(1)
+    rows = []
+    one = torch.ones((), dtype=torch.float32, device=device)
+    for label, (m, k, n) in FP8_MLP_SHAPES.items():
+        a = fp8_operand(g, (1, m, k), device, 2.0)
+        b = fp8_operand(g, (1, k, n), device, 0.05)
+        bcol = b[0].t().contiguous().t()        # column-major, as it takes
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        got = f8.fp8_dot_cuda(a, b, torch.bfloat16)
+        want = f8.fp8_dot_ref(a, b, torch.bfloat16)
+        lib = torch._scaled_mm(a[0], bcol, scale_a=one, scale_b=one,
+                               out_dtype=torch.bfloat16)
+        ops_ms = 2.0 * m * n * k / PEAK_FP8_OPS_PER_S * 1e3
+        bytes_ms = (m * k + k * n + 2 * m * n) / PEAK_BYTES_PER_S * 1e3
+        rows.append(dict(
+            name="fp8_dot", label=label, shape=[m, k, n], dtype="float8_e4m3fn",
+            out_dtype="bfloat16", gflop=2.0 * m * n * k / 1e9,
+            max_abs_err=max_abs_err(got, want),
+            bf16_ulps_vs_plain=bf16_ulps(got, want),
+            scaled_mm_max_abs_diff=max_abs_err(lib, want[0]),
+            ms=event_ms(lambda: f8.fp8_dot_cuda(a, b, torch.bfloat16),
+                        reps=10),
+            plain_ms=event_ms(lambda: f8.fp8_dot_ref(a, b, torch.bfloat16),
+                              reps=5),
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            library_ms=event_ms(lambda: torch._scaled_mm(
+                a[0], bcol, scale_a=one, scale_b=one,
+                out_dtype=torch.bfloat16), reps=10),
+            bf16_matmul_ms=event_ms(lambda: a16[0] @ b16[0], reps=10)))
+        del a, b, bcol, a16, b16, got, want, lib
+        torch.cuda.empty_cache()
+    emit("fp8_times", peak_fp8_ops_per_s=PEAK_FP8_OPS_PER_S, kernels=rows)
+    return rows
+
+
+def phase_fp8_path(device, layers, seq):
+    """``truncate(model.loss, P, native_fp8=True)`` of h2o-danube-1.8b at
+    full width, depth cut to ``FP8_LAYERS`` (``--layers`` sets it), 1 x
+    ``seq`` tokens, ``P`` an e4m3 dot-input rule on ``**/mlp``: every MLP
+    product through the fp8 kernel, against the emulated
+    ``truncate(model.loss, P)``; fp8 launches = the matched dot sites'
+    executions; one walk per signature. Each program is timed once after
+    its first call."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import (E4M3, TruncationPolicy, TruncationRule,
+                                  truncate, truncate_sweep)
+    from repro_torch.models import Model
+
+    cfg = get_config("h2o-danube-1.8b").replace(
+        n_layers=layers or FP8_LAYERS)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    batch = make_batch(cfg, 1, seq, device)
+    pol = TruncationPolicy(rules=(TruncationRule(
+        fmt=E4M3, scope="**/mlp", ops=("dot_general",),
+        quantize_dot_inputs=True),))
+    native = truncate(model.loss, pol, native_fp8=True)
+    emulated = truncate(model.loss, pol)
+    t_start = time.perf_counter()
+    with torch.no_grad():
+        dots = truncate_sweep(model.loss, TruncationPolicy.scoped(
+            "**/mlp", "e8m7", ops=("dot_general",)))(params, batch).index
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()           # the fp8 path starts here
+        ln = native(params, batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()        # ... and ends here
+        le = emulated(params, batch)
+        lp = model.loss(params, batch)
+        out = {}
+        ms = {k: timed(lambda k=k, f=f: out.__setitem__(k, f(params, batch)),
+                       reps=1)
+              for k, f in (("plain", model.loss), ("emulated", emulated),
+                           ("native", native))}
+        again = out["native"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ln, le, lp = float(ln), float(le), float(lp)
+    emit("fp8_path", model=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, d_ff=cfg.d_ff, batch=[1, seq],
+         policy="e4m3 quantize_dot_inputs on **/mlp dot_general",
+         loss_native=ln, loss_emulated=le, loss_plain=lp,
+         rel_diff_native_emulated=abs(ln - le) / abs(le),
+         tolerance=FP8_LOSS_RTOL, fp8_launches=counts["fp8_dot"],
+         matched_dot_site_executions=dots.executions,
+         matched_dot_sites=len(dots), n_traces=native.n_traces,
+         repeat_bit_equal=float(again) == ln, ms=ms,
+         factor_native_over_emulated=ms["native"] / ms["emulated"],
+         peak_gb=round(peak_gb, 2), launches=counts,
+         seconds=round(time.perf_counter() - t_start, 1))
+    check(math.isfinite(ln) and abs(ln - le) <= FP8_LOSS_RTOL * abs(le),
+          "fp8 path: native vs emulated loss", ln, le)
+    check(counts["fp8_dot"] == dots.executions > 0,
+          "fp8 path: launches != matched dot site executions",
+          counts["fp8_dot"], dots.executions)
+    check(native.n_traces == 1 and float(again) == ln, "fp8 path: n_traces",
+          native.n_traces)
+    check(ln != lp, "fp8 path: the policy changed nothing", ln, lp)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the guard path: faults, monitor, escalation ladder, rollback
+# ---------------------------------------------------------------------------
+
+# a save after every step: the fault at step 1 rolls back to the save of
+# step 1, still being written when the alarm comes
+GUARD_STEPS, GUARD_FAULT_STEP = 2, 1
+GUARD_FAULT = f"0:{GUARD_FAULT_STEP}:bitflip"     # site 0: the first MLP
+GUARD_TRAINER_STEPS = 3
+
+
+def phase_guard_path(device, layers):
+    """Runtime guardrails on h2o-danube-1.8b at full width, depth cut to
+    ``TRAIN_IO_LAYERS`` (``--layers`` sets it), 1 x 2048 tokens a
+    microbatch: (i) ``launch.train --production --guardrails
+    --policy-artifact ... --inject-fault 0:1:bitflip``: the bit flip is
+    caught at the injected step or the next, escalated, rolled back to the
+    saved step and the run finishes finite under the escalated table with
+    one enumeration; (ii) ``GuardedTrainer`` fault-free: no interventions,
+    bit-equal to the unguarded hot-swap step; (iii) ``make_guarded_app_loop``
+    on Sod with an overflow fault at its top blamed sites, recovered within
+    10 % of the fault-free run (``tests/test_chaos.py``'s budget)."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.apps import get_app
+    from repro_torch.artifacts import PolicyArtifact, Registry
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import parse_policy
+    from repro_torch.data import DataConfig, Pipeline, to_device
+    from repro_torch.guardrails import (
+        FaultPlan, FaultSpec, GuardedTrainer, GuardrailConfig,
+        make_guarded_app_loop, sites_for_scope,
+    )
+    from repro_torch.kernels.quantize_em.ops import IDENTITY_ROW
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_opt_state,
+                                   make_hotswap_train_step)
+
+    n_layers = layers if layers is not None else TRAIN_IO_LAYERS
+    mlp = parse_policy(TRAIN_POLICY)
+    work = os.path.join(ROOT, "build", "guard_path")
+    if os.path.exists(work):
+        shutil.rmtree(work)
+    os.makedirs(work)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()               # the guard path starts here
+    t_start = time.perf_counter()
+
+    # ---- (i) the train CLI with an injected bit flip ----------------------
+    reg = Registry(os.path.join(work, "registry"))
+    reg.save(PolicyArtifact(name="danube_mlp", policy=mlp))
+    argv = ["--production", "--arch", "h2o-danube-1.8b", "--device", "cuda",
+            "--seq", str(TRAIN_SEQ), "--global-batch", "4", "--lr",
+            str(TRAIN_LR), "--save-every", "1", "--steps", str(GUARD_STEPS),
+            "--ckpt", os.path.join(work, "ck"), "--policy-artifact",
+            "danube_mlp", "--registry", os.path.join(work, "registry"),
+            "--guardrails", "--inject-fault", GUARD_FAULT]
+    t0 = time.perf_counter()
+    out = train_cli.main(argv, n_layers=n_layers)
+    cli_s = time.perf_counter() - t0
+    log = out["guardrail_log"]
+    events = [(iv.step, iv.kind) for iv in log]
+    alarm = log.by_kind("alarm")
+    esc = log.by_kind("escalate_sites")
+    with open(os.path.join(work, "ck", "guardrail_log.json")) as f:
+        saved_log = json.load(f)
+    cli = dict(argv=argv, n_layers=n_layers, log=log.to_json(),
+               events=events, final_step=out["final_step"],
+               restarts=out["restarts"],
+               losses={str(k): v for k, v in out["losses"].items()},
+               n_traces=out["step_fn"].sweep.n_traces,
+               fault_row_widened=out["table"][0].tolist(),
+               seconds=round(cli_s, 1))
+    del out
+    check(log.kinds().get("fault_injected") == 1
+          and alarm and alarm[0].step in (GUARD_FAULT_STEP,
+                                          GUARD_FAULT_STEP + 1)
+          and esc and esc[0].detail["sites"] == [0]
+          and esc[0].detail["scopes"] == ["layer/mlp"]
+          and len(log.by_kind("rollback")) == 1 and cli["restarts"] == 1,
+          "guard path: fault, alarm, escalation, rollback", cli)
+    check(cli["final_step"] == GUARD_STEPS
+          and sorted(cli["losses"]) == [str(s) for s in range(GUARD_STEPS)]
+          and all(math.isfinite(v) for v in cli["losses"].values()),
+          "guard path: the run did not finish finite", cli)
+    check(cli["n_traces"] == 1 and saved_log == log.to_json()
+          and cli["fault_row_widened"] == IDENTITY_ROW.tolist(),
+          "guard path: enumerations, saved log, widened row", cli)
+    # the faulted step's loss (the alarm's reason) against its clean replay
+    faulted_nonfinite = "non-finite" in alarm[0].detail["reason"]
+    check(faulted_nonfinite, "guard path: the bit flip did not reach the loss",
+          alarm[0].detail)
+
+    # ---- (ii) GuardedTrainer fault-free against the unguarded step -------
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=n_layers)
+    model = Model(cfg)
+    batch = to_device(Pipeline(DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=1, vocab=cfg.vocab)).next())
+    tc = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR))
+    t0 = time.perf_counter()
+    gt = GuardedTrainer(model, tc, mlp, model.init(seed=0),
+                        lambda step: batch,
+                        cfg=GuardrailConfig(save_every=100))
+    res = gt.run(GUARD_TRAINER_STEPS)
+    trainer_s = time.perf_counter() - t0
+    step, sites = make_hotswap_train_step(model, tc, mlp, model.init(seed=0),
+                                          batch)
+    table = step.device_table(sites.table_for(mlp))
+    p = model.init(seed=0)
+    o = init_opt_state(model, p, tc)
+    for i in range(GUARD_TRAINER_STEPS):
+        p, o, m = step(p, o, batch, i, table)
+    trainer = dict(steps=GUARD_TRAINER_STEPS, interventions=len(res.log),
+                   rollbacks=res.rollbacks, final_loss=res.final_loss,
+                   unguarded_final_loss=float(m["loss"]),
+                   params_mismatches=tree_mismatches(res.state["params"], p),
+                   n_traces=gt.cache_size(), sites=len(gt.sites),
+                   seconds=round(trainer_s, 1))
+    del gt, res, p, o, step
+    torch.cuda.empty_cache()
+    check(trainer["interventions"] == 0 and trainer["rollbacks"] == 0
+          and trainer["final_loss"] == trainer["unguarded_final_loss"]
+          and trainer["params_mismatches"] == 0 and trainer["n_traces"] == 1,
+          "guard path: fault-free GuardedTrainer", trainer)
+
+    # ---- (iii) the guarded Sod loop with overflow faults ------------------
+    t0 = time.perf_counter()
+    app = get_app("sod", n_cells=32, t_end=0.2)
+    policy = app.uniform_policy("e8m5")
+    _obs, traj = app.profile_trajectory(policy=policy, threshold=1e-6)
+    blame = traj.blame(1e-6)
+
+    def build(fault_plan, name):
+        ck = Checkpointer(os.path.join(work, name), async_save=False)
+        return make_guarded_app_loop(
+            app, policy, checkpointer=ck, fault_plan=fault_plan,
+            cfg=GuardrailConfig(save_every=5, warmup=4, window=8),
+            device=device)
+
+    loop0, sweep = build(None, "sod_ff")
+    handle0 = sweep(app.init_state())
+    # the rows of the top two blamed scopes, as tests/test_chaos.py picks
+    fault_sites, scopes = [], []
+    for b in blame:
+        rows = sites_for_scope(handle0, b.scope) if b.scope else []
+        if rows:
+            scopes.append(b.scope)
+            fault_sites += [r for r in rows if r not in fault_sites]
+        if len(scopes) >= 2:
+            break
+    fault_sites = fault_sites or [0, 1]
+
+    def plan():
+        return FaultPlan([FaultSpec(site=s, step=10, kind="overflow")
+                          for s in fault_sites])
+
+    table = np.asarray(handle0.table(policy), np.int32)
+    fp = plan()
+    state = app.init_state()
+    for i in range(app.n_steps):
+        table, _ = fp.apply(table, i)
+        state = sweep(state)(table)
+    unguarded = max(float(t.abs().max()) for t in state)
+    res0 = loop0.run(app.n_steps)
+    loopg, _ = build(plan(), "sod_guarded")
+    resg = loopg.run(app.n_steps)
+    err = app.error_metric(app.observables(res0.state),
+                           app.observables(resg.state))
+    sod = dict(fault_sites=fault_sites, fault_scopes=scopes,
+               unguarded_max_abs=unguarded, guarded_final=resg.final_loss,
+               error_vs_fault_free=err, kinds=resg.log.kinds(),
+               rollbacks=resg.rollbacks, n_traces=sweep.n_traces,
+               seconds=round(time.perf_counter() - t0, 1))
+    check(not math.isfinite(unguarded) and math.isfinite(resg.final_loss)
+          and err <= 0.10 and sod["kinds"].get("rollback", 0) >= 1
+          and sod["kinds"]["fault_injected"] == len(fault_sites)
+          and all(np.array_equal(resg.table[s], IDENTITY_ROW)
+                  for s in fault_sites) and sweep.n_traces == 1,
+          "guard path: guarded Sod", sod)
+    counts = kernels.launch_counts()            # ... and ends here
+    shutil.rmtree(work)
+    emit("guard_path", model=cfg.name, n_layers=n_layers, d_model=cfg.d_model,
+         batch=[1, TRAIN_SEQ], policy=TRAIN_POLICY, fault=GUARD_FAULT,
+         cli=cli, trainer=trainer, sod=sod, launches=counts,
+         seconds=round(time.perf_counter() - t_start, 1))
+    # the ladder's rungs, as the CLI's log holds them
+    print("\n".join(f"[guard_path] step {iv['step']:>3d}  {iv['kind']:<15s} "
+                    + " ".join(f"{k}={v}" for k, v in iv["detail"].items())
+                    for iv in cli["log"]), flush=True)
+    check(counts["quantize_em_dynamic"] > 0, "guard path: no dynamic launch",
+          counts)
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None)
@@ -3083,7 +3575,8 @@ def main():
                                         "small_ref,times,reconcile,"
                                         "search_path,apps_path,"
                                         "artifact_path,models_path,"
-                                        "serve_path,train_path")
+                                        "serve_path,train_path,fp8_path,"
+                                        "guard_path")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -3092,6 +3585,7 @@ def main():
               "runs on a CUDA device only", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails here if the checkout is missing)
+    from repro_torch.kernels import fp8_dot as f8
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.quantize_em import kernel as qk
     from repro_torch.kernels.rwkv6 import kernel as wk
@@ -3103,6 +3597,7 @@ def main():
     errs = dict.fromkeys(REPLACES)
     if "kernels" in phases:
         errs.update(phase_kernels(device))
+        errs.update(phase_fp8_kernels(device))
     if "fused_kernels" in phases:
         errs.update(phase_fused_kernels(device, args.seq, args.wkv_seq))
     counts = dict.fromkeys(REPLACES, 0)
@@ -3136,6 +3631,11 @@ def main():
         by_path["serve_path"] = phase_serve_path(device)
     if "train_path" in phases:
         by_path["train_path"] = phase_train_path(device, args.layers)
+    if "fp8_path" in phases:
+        by_path["fp8_path"] = phase_fp8_path(device, args.layers, args.seq)
+        counts["fp8_dot"] = by_path["fp8_path"]["fp8_dot"]
+    if "guard_path" in phases:
+        by_path["guard_path"] = phase_guard_path(device, args.layers)
     if "train_lr" in phases:
         phase_train_lr(device, args.layers)
     if "small_ref" in phases:
@@ -3144,7 +3644,7 @@ def main():
         phase_reconcile(device, args.seq)
     rows = []
     if "times" in phases:
-        rows = phase_times(device, args.seq)
+        rows = phase_times(device, args.seq) + phase_fp8_times(device)
     if "times" in phases or "fused_times" in phases:
         rows += phase_fused_times(device, args.seq, args.wkv_seq)
     if "profile" in phases:
@@ -3168,10 +3668,12 @@ def main():
     # path's shapes
     pick = {"quantize_em_static": ("wi_out_bf16", "e5m7"),
             "quantize_em_dynamic": ("logits_f32", "e8m7"),
-            "flash_attention": ("path_bfloat16", None)}
+            "flash_attention": ("path_bfloat16", None),
+            "fp8_dot": ("mlp_wi", None)}
     sources = {"quantize_em_static": qk.SOURCE,
                "quantize_em_dynamic": qk.SOURCE,
-               "flash_attention": fk.SOURCE, "wkv6": wk.SOURCE}
+               "flash_attention": fk.SOURCE, "wkv6": wk.SOURCE,
+               "fp8_dot": f8.SOURCE}
     summary = []
     for name in REPLACES:
         r = next((r for r in rows if r["name"] == name
@@ -3204,7 +3706,9 @@ def main():
                                     "quantize_em_dynamic"),
                     "serve_path": ("quantize_em_static",),
                     "train_path": ("quantize_em_static",
-                                   "quantize_em_dynamic")}
+                                   "quantize_em_dynamic"),
+                    "fp8_path": ("fp8_dot",),
+                    "guard_path": ("quantize_em_dynamic",)}
     for path, names in path_kernels.items():
         if path in phases:
             check(all(by_path[path][n] > 0 for n in names), path, summary)

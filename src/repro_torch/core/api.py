@@ -128,18 +128,20 @@ def truncate(fn: Callable, policy: TruncationPolicy, *, impl: str = "auto",
     ``.backward()`` called on the wrapper's output *outside* it is not
     walked: the rounding is invisible to autograd (straight-through).
 
-    ``native_fp8`` (run ``quantize_dot_inputs`` dot sites on fp8 storage)
-    is not ported yet and raises ``NotImplementedError`` when true."""
+    ``native_fp8``: execute ``quantize_dot_inputs`` dot sites whose rule
+    format maps onto float8_e4m3fn (e4m3 without IEEE infinities, no mask,
+    a plain two-operand ``mm`` / ``bmm`` with a floating output) on fp8
+    storage with f32 accumulation (``kernels.fp8_dot``: the port's fp8 dot
+    kernel for CUDA tensors, its plain version for CPU tensors); every
+    other site keeps the emulated input quantize."""
     _no_mesh(mesh, in_shardings)
-    if native_fp8:
-        raise NotImplementedError(
-            "native_fp8 needs the fp8 dot kernel, which is not ported yet")
     suffix = (policy.cache_key(), impl, native_fp8)
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
         plan = _per_signature(wrapped, cache, suffix, args, kwargs, dict)
-        return interpreter.run_quantized(fn, args, kwargs, policy, impl, plan)
+        return interpreter.run_quantized(fn, args, kwargs, policy, impl, plan,
+                                         native_fp8=native_fp8)
 
     return _attach_cache(wrapped)
 

@@ -112,6 +112,8 @@ from repro_torch.core.policy import (
 )
 # the module, not its names: the quantizer imports core.formats, so either
 # package may be the first one imported
+from repro_torch.core.formats import parse_format
+from repro_torch.kernels import fp8_dot as _fp8
 from repro_torch.kernels import fused as _fused
 from repro_torch.kernels.quantize_em import ops as _q
 
@@ -260,6 +262,7 @@ def prim_name(func, args=()) -> Tuple[str, bool]:
 
 _POW_SCALAR = torch.ops.aten.pow.Tensor_Scalar
 _DETACH = torch.ops.aten.detach.default
+_MISS = object()
 
 
 # --------------------------------------------------------------------------
@@ -366,8 +369,11 @@ def shared_body(name: str, *inputs: torch.Tensor):
     and the frame is never a loop trip."""
     sig = ",".join(f"{tuple(t.shape)}{t.dtype}" for t in inputs)
     top = _frames()[-1]
-    return _enter(_Frame(join_stack(top.stack, f"#{name}({sig})"), top.stack,
-                         False, top.depth))
+    # a ``remat`` recompute traces the body again, as its JVP (residuals
+    # and all): in the reference that is another jaxpr with sites of its own
+    tag = ("#remat/" if _tls.recompute else "") + f"#{name}({sig})"
+    return _enter(_Frame(join_stack(top.stack, tag), top.stack, False,
+                         top.depth))
 
 
 def current_stack() -> str:
@@ -432,7 +438,8 @@ class _Grads:
         the region's frames (``_recompute``) and claims nothing.
     """
 
-    __slots__ = ("seq0", "last", "root", "fwd", "bwd", "orphan")
+    __slots__ = ("seq0", "last", "root", "fwd", "bwd", "orphan", "node",
+                 "claimed", "saved")
 
     def __init__(self):
         self.seq0 = self.last = _sequence_nr()
@@ -440,6 +447,11 @@ class _Grads:
         self.fwd: Dict[int, Tuple[_Frame, int]] = {}
         self.bwd: Dict[int, _Frame] = {}
         self.orphan: Optional[_Frame] = None
+        self.node = None        # the autograd node of the op being dispatched
+        self.claimed = None     # the node number the op claimed, if any
+        # forward inputs a derivative formula needs and autograd does not
+        # save (``_FORMULAS``), by node number
+        self.saved: Dict[int, torch.Tensor] = {}
 
     def _orphan(self) -> _Frame:
         if self.orphan is None:
@@ -455,7 +467,8 @@ class _Grads:
         of one loop trip against another) gets position -1: it never holds
         a site, and claims no node."""
         recompute = _tls.recompute
-        node = None if recompute else _current_node()
+        node = self.node = None if recompute else _current_node()
+        self.claimed = None
         if node is None:
             frames = _frames()
             if frames[0] is not self.root and not recompute:
@@ -470,7 +483,9 @@ class _Grads:
                 seq = _sequence_nr()
                 if seq != self.last:        # autograd made a node for it
                     self.last = seq
-                    self.fwd.setdefault(seq - 1, (frame, pos))
+                    if seq - 1 not in self.fwd:
+                        self.fwd[seq - 1] = (frame, pos)
+                        self.claimed = seq - 1
             return frame, pos, False
         seq = node._sequence_nr()
         frame = self.bwd.get(seq)
@@ -542,6 +557,76 @@ def remat(fn, *args):
 
 
 # --------------------------------------------------------------------------
+# derivative formulas: the reference's elementary ops
+# --------------------------------------------------------------------------
+#
+# autograd's formulas are not JAX's JVP rules, and a policy rounds every
+# elementary op of a formula. Where the two differ on the models' paths, a
+# walk that rounds (a live policy, a table, an enumeration) computes the
+# reference's ops instead, each a site of the backward frame in the
+# reference's order; a plain run keeps autograd's. Each entry is keyed by
+# the autograd node's name and gets the op autograd dispatched; it returns
+# the op's value, or ``_MISS`` to run the op as it is.
+
+_RSQRT = torch.ops.aten.rsqrt.default
+_SIGMOID_BACKWARD = torch.ops.aten.sigmoid_backward.default
+_EXPAND = torch.ops.aten.expand.default
+_VIEWS = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
+
+
+def _sigmoid_backward(mode, node, frame, pos, func, args):
+    """``logistic``'s JVP: ``1 - s`` and ``s * (1 - s)`` (residuals), then
+    the product with the cotangent; autograd's is one fused op."""
+    if func is not _SIGMOID_BACKWARD:
+        return _MISS
+    g, s = args
+    e = mode.on_output(frame, pos, 0, "sub", 1 - s)
+    c = mode.on_output(frame, _Grads._next(frame, True)[1], 0, "mul", s * e)
+    return mode.on_output(frame, _Grads._next(frame, True)[1], 0, "mul",
+                          g * c)
+
+
+def _rsqrt_backward(mode, node, frame, pos, func, args):
+    """``rsqrt``'s JVP residual is ``rsqrt(x) / x``; autograd's formula
+    raises the result to the third power. The rest (``* -0.5``, ``* g``)
+    is the same product in both."""
+    if func is not _POW_SCALAR or args[1] != 3:
+        return _MISS
+    x = mode.grads.saved.pop(node._sequence_nr(), None)
+    if x is None:
+        return _MISS
+    return mode.on_output(frame, pos, 0, "div", args[0] / x)
+
+
+def _keepdim_sum_backward(mode, node, frame, pos, func, args):
+    """``jnp.sum(..., keepdims=True)`` is ``reduce_sum`` and a
+    ``broadcast_in_dim``, whose transpose sums the cotangent over the kept
+    singleton axis (a site); autograd only expands it."""
+    if func is not _EXPAND or not node._saved_keepdim:
+        return _MISS
+    g = mode.on_output(frame, pos, 0, "reduce_sum", args[0])
+    return func(g, *args[1:])
+
+
+def _unbroadcast(mode, node, frame, pos, func, args):
+    """An operand of lower rank (``x * scale`` of shape ``(D,)``): ``jnp``
+    promotes it with a ``broadcast_in_dim`` whose transpose is a second
+    ``reduce_sum`` over the added axes; autograd's ``sum_to`` views them
+    away."""
+    if func not in _VIEWS or len(args[1]) >= args[0].dim():
+        return _MISS
+    return mode.on_output(frame, pos, 0, "reduce_sum", func(*args))
+
+
+_FORMULAS = {
+    "SigmoidBackward0": _sigmoid_backward,
+    "RsqrtBackward0": _rsqrt_backward,
+    "SumBackward1": _keepdim_sum_backward,
+    **{f"{op}Backward0": _unbroadcast for op in ("Mul", "Div", "Add", "Sub")},
+}
+
+
+# --------------------------------------------------------------------------
 # the modes
 # --------------------------------------------------------------------------
 
@@ -588,6 +673,9 @@ class _WalkMode(TorchDispatchMode):
     # mem-mode pairs lanes op by op in program order; a backward pass has
     # no such order to pair yet
     backward_ok = True
+    # whether backward ops follow the reference's formulas (``_FORMULAS``):
+    # every walk that rounds or enumerates
+    formulas = True
 
     def __enter__(self):
         self.grads = _Grads()
@@ -595,7 +683,9 @@ class _WalkMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         prim, mutates = prim_name(func, args)
-        frame, pos, backward = self.grads.site(func is not _DETACH)
+        grads = self.grads
+        frame, pos, backward = grads.site(func is not _DETACH)
+        kwargs = kwargs or {}
         if backward:
             if not self.backward_ok:
                 raise NotImplementedError(
@@ -603,7 +693,16 @@ class _WalkMode(TorchDispatchMode):
                     "profiled function (torch.autograd.grad) is not supported "
                     "by mem-mode and trajectories yet (ROADMAP Queue A)")
             prim = _BACKWARD_PRIM.get(prim, prim)
-        kwargs = kwargs or {}
+            node = grads.node
+            formula = (_FORMULAS.get(node.name())
+                       if self.formulas and node is not None and not kwargs
+                       else None)
+            if formula is not None:
+                out = formula(self, node, frame, pos, func, args)
+                if out is not _MISS:
+                    return out
+        elif func is _RSQRT and grads.claimed is not None and self.formulas:
+            grads.saved[grads.claimed] = args[0]
         args, kwargs, routed = self.on_inputs(frame, pos, prim, func, args,
                                               kwargs)
         out = self.run(func, args, kwargs, mutates)
@@ -641,19 +740,25 @@ class _WalkMode(TorchDispatchMode):
         return val
 
 
-_MISS = object()
-
-
 class _PolicyMode(_WalkMode):
     """Formats fixed by the policy: the original op-mode transform. ``plan``
     memoises the rule decided for every (site key) of one input signature,
-    so matching runs once per signature."""
+    so matching runs once per signature.
 
-    def __init__(self, policy: TruncationPolicy, impl: str, plan: Dict):
+    ``native_fp8``: a ``quantize_dot_inputs`` dot site whose rule takes the
+    native path (``_native_fp8_rule``) runs as ``fp8_dot.fp8_aten_dot``
+    (operands stored as float8_e4m3fn, f32 sums) instead of the op on
+    operands rounded in their carrier dtype."""
+
+    def __init__(self, policy: TruncationPolicy, impl: str, plan: Dict,
+                 native_fp8: bool = False):
         super().__init__()
         self.policy, self.impl, self.plan = policy, impl, plan
-        # fast path: a policy with no rules can never match
-        self.live = bool(policy.rules)
+        # fast path: a policy with no rules can never match (and leaves
+        # autograd's formulas as a plain run has them)
+        self.live = self.formulas = bool(policy.rules)
+        self.native_fp8 = native_fp8
+        self._fp8 = None            # the native format of the op about to run
 
     def _rule(self, frame, pos, out_idx, prim, dtype):
         key = (frame.path, pos, out_idx)
@@ -671,8 +776,11 @@ class _PolicyMode(_WalkMode):
             if dt is not None:
                 rule0 = self._rule(frame, pos, -1, prim, dt)
                 if rule0 is not None and rule0.quantize_dot_inputs:
-                    args = tuple(_maybe_quantize(a, rule0, self.impl)
-                                 for a in args)
+                    self._fp8 = self._native_fp8_rule(rule0, func, args,
+                                                      kwargs)
+                    if self._fp8 is None:
+                        args = tuple(_maybe_quantize(a, rule0, self.impl)
+                                     for a in args)
             return args, kwargs, ()
         wired = _wired_row(func, prim, args)
         if wired is None:
@@ -691,6 +799,25 @@ class _PolicyMode(_WalkMode):
             row = self.plan[key] = torch.tensor(
                 key[1], dtype=torch.int32, device=device)
         return _with_row(args, ri, row), kwargs, (fi,)
+
+    def _native_fp8_rule(self, rule, func, args, kwargs):
+        """The parsed format when this dot should take the native fp8 path
+        (an e4m3-storable format, no mask, a plain two-operand dot --
+        ``mm`` or ``bmm`` -- with a floating output), else ``None``: the
+        emulated input quantize. The reference's rule."""
+        if (not self.native_fp8 or func not in _fp8.ATEN_DOTS or kwargs
+                or rule.mask is not None or len(args) != 2
+                or not all(_is_float(a) for a in args)):
+            return None
+        fmt = parse_format(rule.fmt)
+        return fmt if _fp8.is_native_fp8_format(fmt) else None
+
+    def run(self, func, args, kwargs, mutates):
+        fmt, self._fp8 = self._fp8, None
+        if fmt is not None:
+            return _fp8.fp8_aten_dot(func, args, saturate=fmt.saturate,
+                                     impl=self.impl)
+        return func(*args, **kwargs)
 
     def on_output(self, frame, pos, out_idx, prim, val):
         if not self.live or not val.dtype.is_floating_point:
@@ -881,11 +1008,10 @@ def run_quantized(fn, args, kwargs, policy: TruncationPolicy,
                   native_fp8: bool = False):
     """Run ``fn(*args, **kwargs)`` with op-mode truncation under ``policy``.
     ``plan`` carries the per-site rule decisions between runs of one input
-    signature."""
-    if native_fp8:
-        raise NotImplementedError(
-            "native_fp8 needs the fp8 dot kernel, which is not ported yet")
-    mode = _PolicyMode(policy, impl, {} if plan is None else plan)
+    signature. ``native_fp8`` runs ``quantize_dot_inputs`` dot sites whose
+    format maps onto float8_e4m3fn on fp8 storage (``_PolicyMode``)."""
+    mode = _PolicyMode(policy, impl, {} if plan is None else plan,
+                       native_fp8)
     with _fresh_root(), mode:
         return fn(*args, **kwargs)
 

@@ -21,9 +21,16 @@ A restart restores the latest checkpoint and, when the checkpoint records
 the artifact it trained under, re-loads that artifact by name and version
 and refuses to resume if its digest differs.
 
-Not ported yet: ``--guardrails`` / ``--inject-fault`` (ROADMAP Queue A item
-2) and ``--multi-pod`` / ``--coordinator`` / ``--num-hosts`` > 1 (item 5);
-each raises.
+``--guardrails`` (with ``--policy-artifact``) watches every step's loss and
+finiteness; on an alarm the escalation ladder widens the blamed rows of the
+live table and, from its second rung, rolls back to the last checkpoint,
+resuming under the escalated table. ``--inject-fault SITE:STEP[:KIND]``
+(with ``--guardrails``) corrupts a table row at a step (``overflow``, the
+default, or ``bitflip``). The log of interventions is saved beside the
+checkpoints and attached to the artifact.
+
+Not ported yet: ``--multi-pod`` / ``--coordinator`` / ``--num-hosts`` > 1
+(ROADMAP Queue A item 5); each raises.
 """
 from __future__ import annotations
 
@@ -41,6 +48,11 @@ from repro_torch.data.pipeline import DataConfig, Pipeline, Prefetcher, to_devic
 from repro_torch.distributed import (
     StragglerMonitor, SupervisorConfig, run_supervised,
 )
+from repro_torch.guardrails import (
+    EscalationLadder, FaultPlan, FaultSpec, GuardrailLog,
+    NumericalFaultError, StepMonitor,
+)
+from repro_torch.guardrails.controller import _DeviceTable
 from repro_torch.models import Model
 from repro_torch.models.common import resolve_device
 from repro_torch.optim.adamw import AdamWConfig, warmup_cosine
@@ -69,10 +81,14 @@ def parse_args(argv=None):
                     help="hot-swap to registry artifact REF at STEP "
                          "(repeatable; requires --policy-artifact)")
     ap.add_argument("--guardrails", action="store_true",
-                    help="not ported yet (ROADMAP Queue A item 2)")
+                    help="runtime numerical guardrails: per-step divergence "
+                         "monitor + precision-escalation ladder + "
+                         "checkpoint rollback (requires --policy-artifact)")
     ap.add_argument("--inject-fault", action="append", default=[],
                     metavar="SITE:STEP[:KIND]",
-                    help="not ported yet (ROADMAP Queue A item 2)")
+                    help="chaos demo: corrupt table row SITE at STEP "
+                         "(KIND: overflow | bitflip; repeatable; requires "
+                         "--guardrails)")
     ap.add_argument("--registry", default=None,
                     help=f"artifact registry root (default $RAPTOR_REGISTRY "
                          f"or {default_root()!r})")
@@ -89,11 +105,17 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _parse_fault(spec: str) -> FaultSpec:
+    """``--inject-fault SITE:STEP[:KIND]`` (KIND: overflow | bitflip)."""
+    parts = spec.split(":")
+    if len(parts) not in (2, 3):
+        raise SystemExit(
+            f"bad --inject-fault {spec!r}; want SITE:STEP[:KIND]")
+    kind = parts[2] if len(parts) == 3 else "overflow"
+    return FaultSpec(site=int(parts[0]), step=int(parts[1]), kind=kind)
+
+
 def _not_ported(args):
-    if args.guardrails or args.inject_fault:
-        raise NotImplementedError(
-            "--guardrails / --inject-fault need the guardrails port "
-            "(ROADMAP Queue A item 2)")
     if args.multi_pod or args.coordinator or args.num_hosts > 1:
         raise NotImplementedError(
             "--multi-pod / --coordinator / --num-hosts > 1 need the "
@@ -103,8 +125,11 @@ def _not_ported(args):
 
 def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
     """Train and print the run; returns ``{"final_step", "restarts",
-    "straggles", "losses" (step -> loss), "step_fn", "state" (the final
-    ``{"params", "opt"}``, as the last checkpoint holds them)}``.
+    "straggles", "losses" (step -> loss; a replayed step keeps its last
+    loss), "step_fn", "state" (the final ``{"params", "opt"}``, as the last
+    checkpoint holds them), "guardrail_log" (``None`` without
+    ``--guardrails``), "table" (the final numpy table, ``None`` without
+    ``--policy-artifact``)}``.
     ``n_layers`` cuts the configuration's depth (a caller's smoke run of a
     full-width model); the command line has no such flag."""
     args = parse_args(argv)
@@ -126,6 +151,11 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
     if args.swap_artifact and not args.policy_artifact:
         raise SystemExit("--swap-artifact requires --policy-artifact "
                          "(the runtime-table training path)")
+    if args.guardrails and not args.policy_artifact:
+        raise SystemExit("--guardrails requires --policy-artifact (the "
+                         "escalation ladder rewrites the runtime table)")
+    if args.inject_fault and not args.guardrails:
+        raise SystemExit("--inject-fault requires --guardrails")
     registry = Registry(args.registry) if args.policy_artifact else None
     try:
         res = resolve_policy(args.policy, args.policy_artifact,
@@ -171,15 +201,39 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
         step_fn, sites = make_hotswap_train_step(
             model, tc, TruncationPolicy(rules=site_rules), state["params"],
             peeked[0])
+        # the live table is numpy (faults and the ladder rewrite it); the
+        # step reads its device copy, made again only when it changes
+        live_table = _DeviceTable(step_fn.device_table)
         active = {"ref": artifact_ref,
-                  "table": step_fn.device_table(
-                      sites.table_for(artifact.policy))}
+                  "table": sites.table_for(artifact.policy)}
     else:
         step_fn = make_train_step(model, tc)
         sites = active = None
 
+    # ---- runtime numerical guardrails -------------------------------------
+    # monitor every step's loss and finiteness; on an alarm, escalate blamed
+    # sites in the live table (a new table value, no new enumeration) and
+    # roll back through run_supervised (NumericalFaultError is a
+    # RuntimeError, the supervisor's default retry class)
+    guard = None
+    if args.guardrails:
+        glog = GuardrailLog()
+        guard = {
+            "monitor": StepMonitor(),
+            "ladder": EscalationLadder(active["table"], site_index=sites,
+                                       log=glog),
+            "plan": FaultPlan([_parse_fault(f) for f in args.inject_fault]),
+            "log": glog,
+            "escalated": None,
+        }
+
     def restore_fn() -> int:
+        # a rollback right after a save restores that save: wait for the
+        # write in flight to land before asking for the latest step
+        ck.wait()
         latest = ck.latest_step()
+        if guard is not None:
+            guard["monitor"].reset()
         if latest is None:
             return 0
         (state["params"], state["opt"]), manifest = ck.restore(
@@ -197,9 +251,13 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
                     f"{rec['digest'][:12]}; refusing to resume under a "
                     "different policy than the one trained on")
             active["ref"] = ArtifactRef.from_json(rec)
-            active["table"] = step_fn.device_table(sites.table_for(art.policy))
+            active["table"] = sites.table_for(art.policy)
             print(f"[supervisor] resumed policy {active['ref'].ref}",
                   flush=True)
+        if guard is not None and guard["escalated"] is not None:
+            # the ladder's widened rows survive the rollback -- resuming
+            # under the pre-escalation table would just diverge again
+            active["table"] = guard["escalated"]
         print(f"[supervisor] restored step {latest}", flush=True)
         return latest
 
@@ -215,14 +273,35 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
         if active is not None and step in swap_schedule:
             art, ref = swap_schedule[step]
             active["ref"] = ref
-            active["table"] = step_fn.device_table(sites.table_for(art.policy))
+            active["table"] = sites.table_for(art.policy)
             print(f"[policy] step {step}: hot-swapped to {ref.ref} "
                   "(runtime table, no new enumeration)", flush=True)
+        if guard is not None:
+            table, fired = guard["plan"].apply(active["table"], step)
+            for f in fired:
+                guard["log"].record(
+                    step, "fault_injected", site=f.site, fault=f.kind,
+                    row=[int(x) for x in table[f.site]])
+                print(f"[guardrail] step {step}: injected {f.kind} "
+                      f"fault at site {f.site}", flush=True)
+            active["table"] = table
         batch = peeked.pop() if peeked else to_device(pf.next(), device)
-        extra = (active["table"],) if active is not None else ()
+        extra = (live_table(active["table"]),) if active is not None else ()
         state["params"], state["opt"], m = step_fn(
             state["params"], state["opt"], batch, step, *extra)
         loss = losses[step] = float(m["loss"])
+        if guard is not None:
+            v = guard["monitor"].update(step, loss,
+                                        nonfinite=bool(m["nonfinite"]))
+            if v.alarm:
+                print(f"[guardrail] step {step}: ALARM — {v.reason}",
+                      flush=True)
+                table, rollback = guard["ladder"].escalate(
+                    active["table"], step, v)
+                active["table"] = guard["escalated"] = table
+                if rollback:
+                    guard["log"].record(step, "rollback", reason=v.reason)
+                    raise NumericalFaultError(v.reason)
         if step % 10 == 0:
             print(f"step {step:6d} loss {loss:.4f} "
                   f"gnorm {float(m['grad_norm']):.3f} "
@@ -237,11 +316,28 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
         ck.wait()
         print(f"done: step={final} restarts={restarts} "
               f"straggles={straggles}", flush=True)
+        if guard is not None:
+            glog = guard["log"]
+            log_path = os.path.join(args.ckpt, "guardrail_log.json")
+            glog.save(log_path)
+            print(glog.summary(), flush=True)
+            print(f"[guardrail] log saved to {log_path}", flush=True)
+            if artifact is not None and len(glog):
+                # the audited artifact: the deployed policy plus what the
+                # controller did while it ran
+                audited = glog.attach(artifact)
+                art_path = os.path.join(args.ckpt, "guardrail_artifact.json")
+                with open(art_path, "w") as f:
+                    f.write(audited.dumps() + "\n")
+                print(f"[guardrail] audited artifact saved to {art_path}",
+                      flush=True)
     finally:
         pf.close()
     return {"final_step": final, "restarts": restarts,
             "straggles": straggles, "losses": losses, "step_fn": step_fn,
-            "state": state}
+            "state": state,
+            "guardrail_log": guard["log"] if guard is not None else None,
+            "table": active["table"] if active is not None else None}
 
 
 if __name__ == "__main__":

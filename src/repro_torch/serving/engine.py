@@ -15,6 +15,16 @@ table), and a plain step's signatures are counted the same way, so
 ``cache_sizes()`` reports those; the slot reset is plain tensor code with
 nothing kept per signature, reported as ``None``.
 
+**Decode rows.** The decode step runs at ``Engine.rows`` rows, at least
+:data:`DECODE_ROWS` whatever the engine's ``batch_size``: rows past the
+slots idle as an empty slot does. On the card a matrix product or a
+reduction may take another summation order at another row count, so a
+batch-1 engine and a 4-slot one would decode one request to other logits;
+at one row count every row is computed alike and a request's tokens do not
+depend on the engine or the slot that serves it (the reference's isolation
+contract). An engine of more than :data:`DECODE_ROWS` slots decodes at a
+multiple of it.
+
 Each tick makes one host synchronisation, the read-back of the logits (as
 the reference's ``np.asarray(logits)``); the step itself makes none: the
 tokens go up through a pinned buffer without a synchronisation, and the
@@ -43,6 +53,15 @@ from repro_torch.core import api
 from repro_torch.core.api import truncate
 from repro_torch.core.policy import resolve_policy
 from repro_torch.serving.shadow import ShadowConfig, ShadowProfiler
+
+# the decode step's least row count (see the module docstring)
+DECODE_ROWS = 8
+
+
+def decode_rows(batch_size: int) -> int:
+    """Rows of the decode step of an engine of ``batch_size`` slots: the
+    least multiple of :data:`DECODE_ROWS` that holds them."""
+    return -(-max(batch_size, 1) // DECODE_ROWS) * DECODE_ROWS
 
 
 @dataclasses.dataclass
@@ -87,7 +106,9 @@ class Engine:
     ``serving_report`` (rolling merged RaptorReport), ``drift_events``,
     and threads fired drift detections into ``self.artifact`` provenance.
 
-    The cache lives on the device of ``params``.
+    The cache lives on the device of ``params``; it and the decode step
+    have ``rows`` = :func:`decode_rows` lanes, of which the first
+    ``batch_size`` serve requests.
     """
 
     def __init__(self, model, params, batch_size: int = 8,
@@ -96,13 +117,14 @@ class Engine:
         self.model = model
         self.params = params
         self.B = batch_size
+        self.rows = decode_rows(batch_size)
         self.S = max_seq_len
         self.greedy = greedy
         res = resolve_policy(policy, registry=registry)
         self.policy = res.policy
         self.artifact = res.artifact
         self.device = pytree.tree_leaves(params)[0].device
-        self.cache = model.init_cache(batch_size, max_seq_len,
+        self.cache = model.init_cache(self.rows, max_seq_len,
                                       device=self.device)
         self.slots: List[Optional[Request]] = [None] * batch_size
         self.lengths = np.zeros(batch_size, np.int32)
@@ -119,7 +141,7 @@ class Engine:
         # without a host synchronisation (the previous tick's read-back has
         # finished every copy out of it)
         self._tok_host = torch.zeros(
-            (batch_size,), dtype=torch.int32,
+            (self.rows,), dtype=torch.int32,
             pin_memory=self.device.type == "cuda")
         self._queue: deque = deque()
         self._done: Dict[int, Request] = {}
@@ -218,7 +240,7 @@ class Engine:
         live = [s for s in range(self.B) if self.slots[s] is not None]
         if not live:
             return False
-        tok = np.zeros((self.B,), np.int32)
+        tok = np.zeros((self.rows,), np.int32)
         emitting = []
         for s in live:
             req = self.slots[s]

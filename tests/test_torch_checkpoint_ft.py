@@ -319,5 +319,13 @@ def test_launch_train_n_layers_cuts_the_depth(tmp_path):
     (["--multi-pod"], "item 5"), (["--num-hosts", "2"], "item 5"),
     (["--coordinator", "localhost:1"], "item 5")])
 def test_launch_train_flags_not_ported_raise(tmp_path, flags, item):
+    """The distribution flags (item 5) raise ``NotImplementedError``. The
+    guardrail flags (item 2) are ported: without their prerequisites
+    (``--policy-artifact``, resp. ``--guardrails``) they exit with the
+    reference's message, as ``test_torch_guardrails.py`` checks too."""
+    if item == "item 2":
+        with pytest.raises(SystemExit, match="requires"):
+            _train(tmp_path, "--steps", "1", *flags)
+        return
     with pytest.raises(NotImplementedError, match=item):
         _train(tmp_path, "--steps", "1", *flags)

@@ -70,6 +70,10 @@ def test_every_module_is_found():
                  "repro_torch.artifacts.registry",
                  "repro_torch.analysis.lint",
                  "repro_torch.guardrails", "repro_torch.guardrails.log",
+                 "repro_torch.guardrails.faults",
+                 "repro_torch.guardrails.monitor",
+                 "repro_torch.guardrails.controller",
+                 "repro_torch.kernels.fp8_dot",
                  "repro_torch.serving", "repro_torch.serving.engine",
                  "repro_torch.serving.shadow", "repro_torch.launch",
                  "repro_torch.launch.serve", "repro_torch.launch.train",

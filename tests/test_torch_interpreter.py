@@ -363,13 +363,17 @@ def test_in_place_ops_keep_their_aliasing():
 
 
 def test_scope_rules_and_keywords_not_ported_yet():
+    """Scope names are one plain segment; ``mesh`` / ``in_shardings`` are
+    not ported yet. ``native_fp8`` is (``test_torch_fp8_dot.py``): with no
+    ``quantize_dot_inputs`` rule it changes no bit."""
     with pytest.raises(ValueError):
         tc.scope("a/b")
     with pytest.raises(ValueError):
         tc.scope("")
     pol = tc.TruncationPolicy.everywhere("e4m3")
-    with pytest.raises(NotImplementedError, match="native_fp8"):
-        tc.truncate(tprog, pol, native_fp8=True)
+    xs = T(inputs(seed=8))
+    assert torch.equal(tc.truncate(tprog, pol, native_fp8=True)(*xs),
+                       tc.truncate(tprog, pol)(*xs))
     with pytest.raises(NotImplementedError, match="mesh"):
         tc.truncate(tprog, pol, mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):

@@ -118,6 +118,33 @@ def test_continuous_bit_identical_to_isolated(lm, batch_size):
     assert [tuple(h.out_tokens) for h in handles] == ref
 
 
+def test_decode_runs_at_one_row_count_whatever_the_batch_size(lm):
+    """Engines of 1 and 4 slots call the decode step at the same row count
+    (``DECODE_ROWS``), so on the card a request decodes through the same
+    summation orders in either; 9 slots take the next multiple."""
+    from repro_torch.serving.engine import DECODE_ROWS, decode_rows
+    cfg, model, params = lm
+    rows = {}
+    for b in (1, 4, 9):
+        eng = Engine(model, params, batch_size=b, max_seq_len=16)
+        seen = []
+        step = eng._decode
+
+        def spy(p, cache, tokens, _step=step, _seen=seen):
+            _seen.append((tuple(tokens.shape), int(cache["pos"].shape[0])))
+            return _step(p, cache, tokens)
+
+        spy.cache_size = step.cache_size
+        eng._decode = spy
+        eng.submit(np.array([1, 2, 3]), max_new_tokens=2)
+        eng.run()
+        assert seen and len(set(seen)) == 1
+        rows[b] = seen[0]
+        assert eng.rows == decode_rows(b) and len(eng.slots) == b
+    assert rows[1] == rows[4] == ((DECODE_ROWS,), DECODE_ROWS)
+    assert rows[9] == ((2 * DECODE_ROWS,), 2 * DECODE_ROWS)
+
+
 def test_continuous_bit_identical_under_policy(lm):
     cfg, model, params = lm
     pol = TruncationPolicy.scoped("**/mlp", "e5m4")
