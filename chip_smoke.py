@@ -79,8 +79,9 @@ plain PyTorch version on the card, then drives the port's twelve paths:
     h2o-danube-1.8b at full width, depth cut to 12 layers, 1 x 8192
     tokens, ``P`` an e4m3
     ``quantize_dot_inputs`` rule on the MLP's products: every one through
-    the fp8 dot kernel (``kernels/csrc/fp8_dot.cu``), the loss held to the
-    emulated ``truncate(model.loss, P)``, launches = matched dot sites;
+    the fp8 dot kernel (``kernels/csrc/fp8_dot.cu``, on the tensor
+    cores), the loss held to the emulated ``truncate(model.loss, P)``,
+    launches = matched dot sites;
   * the guard path — runtime guardrails on h2o-danube-1.8b at full width,
     depth cut to 2 layers: ``launch.train --production --guardrails
     --policy-artifact ... --inject-fault 0:1:bitflip`` (the fault through
@@ -109,14 +110,17 @@ h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,mem_path,traj_path,fused_path,small_ref,
 times,reconcile,search_path,apps_path,artifact_path,models_path,serve_path,
-train_path,fp8_path,guard_path`` (``kernels`` includes the fp8 kernel's
-checks, ``times`` its times)
+train_path,fp8_path,guard_path`` (``kernels`` includes the fp8
+kernel's checks, ``times`` its times; ``fp8_times`` alone times it)
 or adds
+``fp8_probe`` (the fp8 kernel's design step 0: which tensor-core route holds
+its error bound, from a library of its own, ``csrc/fp8_mma_probe.cu``),
 ``profile`` (device time by kernel name for one plain and one swept forward,
 a decode tick, a train step; ``profile_train`` the train step alone),
 ``train_lr`` (the train path's plain steps at several learning rates and
-depths) or ``isa`` (registers and spills of every WKV6 kernel, from ``nvcc -Xptxas
--v``); ``fused_times`` alone times the flash-attention and WKV6 kernels
+depths) or ``isa`` (registers and spills of every WKV6 kernel and of the
+fp8 dot kernel, from ``nvcc -Xptxas -v``); ``fused_times`` alone times the
+flash-attention and WKV6 kernels
 without the quantizers (``times`` includes it).
 """
 from __future__ import annotations
@@ -3094,13 +3098,15 @@ def aten_calls(fn) -> int:
 
 
 def phase_isa():
-    """Registers and spills of every WKV6 kernel (``nvcc -Xptxas -v`` with
-    the library's own flags), which no profiler on the card's machine
-    shows. Fails if the main path's kernel (bf16 r/k/v, f32 w, hd 64)
-    spills. Not part of the default run: ``--phases isa``."""
+    """Registers and spills of every WKV6 kernel and of the fp8 dot kernel
+    (``nvcc -Xptxas -v`` with each library's own flags), which no profiler
+    on the card's machine shows. Fails if the main path's WKV6 kernel (bf16
+    r/k/v, f32 w, hd 64) or an fp8 dot kernel spills. Not part of the
+    default run: ``--phases isa``."""
     import re
     import tempfile
     from repro_torch.kernels import _build
+    from repro_torch.kernels import fp8_dot as f8
     from repro_torch.kernels.quantize_em.kernel import _FLAGS
     from repro_torch.kernels.rwkv6 import kernel as wk
 
@@ -3109,6 +3115,12 @@ def phase_isa():
             [_build.find_nvcc(), *_build.NVCC_FLAGS, *_FLAGS,
              "-I", str(_build.INCLUDE_DIR), "-Xptxas", "-v",
              "-o", os.path.join(tmp, "wkv6.so"), str(wk._SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=600,
+            check=True).stdout.decode()
+        fp8_log = subprocess.run(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS,
+             "-I", str(_build.INCLUDE_DIR), "-Xptxas", "-v",
+             "-o", os.path.join(tmp, "fp8_dot.so"), str(f8._SOURCE)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=600,
             check=True).stdout.decode()
     # keyed by the mangled template arguments: r/k/v type, w type, HD, R,
@@ -3120,11 +3132,22 @@ def phase_isa():
                    r"EEEvNS_4ArgsE\n[^\n]*?(\d+) bytes spill stores"
                    r"[^\n]*\n[^\n]*?Used (\d+) registers", log)}
     path = kernels.get("13__nv_bfloat16fLi64ELi4ELi2ELi16")
-    emit("isa", kernels=kernels)
+    # the fp8 dot kernel, one instance per output type (f, 13__nv_bfloat16,
+    # 6__half)
+    fp8_kernels = {m.group(1): dict(spill_store_bytes=int(m.group(2)),
+                                    registers=int(m.group(3)))
+                   for m in re.finditer(
+                       r"Function properties for \S*?(fp8_dot_sm90I\w+?E)"
+                       r"\S*\n[^\n]*?(\d+) bytes spill stores[^\n]*\n"
+                       r"[^\n]*?Used (\d+) registers", fp8_log)}
+    emit("isa", kernels=kernels, fp8_kernels=fp8_kernels)
     check(len(kernels) == 4 * len(wk.HEAD_DIMS), "isa: kernels found",
           sorted(kernels))
     check(path is not None and path["spill_store_bytes"] == 0,
           "isa: the path kernel spills", path)
+    check(len(fp8_kernels) == 3 and all(v["spill_store_bytes"] == 0
+                                         for v in fp8_kernels.values()),
+          "isa: the fp8 dot kernel spills", fp8_kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -3135,8 +3158,9 @@ def phase_isa():
 # h @ wo
 FP8_MLP_SHAPES = {"mlp_wi": (8192, 2560, 13824), "mlp_wo": (8192, 6912, 2560)}
 # native against emulated loss on the fp8 path: both sum the same exact
-# products of e4m3 values in f32 (the kernel in k order, cuBLAS's bf16 GEMM
-# in its own) and round each MLP product once to bf16, so an element may
+# products of e4m3 values in f32 (the kernel per k-tile of 128 on the
+# tensor cores, then across k-tiles in order; cuBLAS's bf16 GEMM in its
+# own order) and round each MLP product once to bf16, so an element may
 # land one bf16 step (2^-8 relative) apart; the mean loss over 8192 tokens
 # moves far less
 FP8_LOSS_RTOL = 1e-3
@@ -3256,11 +3280,61 @@ def phase_fp8_kernels(device):
     return {"fp8_dot": max(c["max_abs_err"] for c in cases)}
 
 
+# the design's step 0: (route, instructions between promotions of the
+# tensor core's sum into f32 registers; 0: one promotion, at the end) on
+# fp8_hold's operands with spread 4, and the depths measured
+FP8_PROBE_ROUTES = (("fp8", 1), ("fp8", 4), ("f16", 1), ("f16", 8),
+                    ("f16", 0), ("bf16", 8))
+FP8_PROBE_K = (32, 131, 2560, 6912)
+
+
+def phase_fp8_probe(device):
+    """Which tensor-core route holds the fp8 kernel's contract: a 128 x 128
+    block of each depth through every route of ``FP8_PROBE_ROUTES``
+    (``fp8_dot.mma_probe``: one warpgroup per 64 x 64, the sum promoted
+    into f32 registers every P instructions), its largest error over
+    ``fp8_hold``'s bound ``K * 2^-23 * (|Aq| @ |Bq|)`` against the plain
+    version and against the exact (f64) sums. Fails if the shipped route
+    does not hold the bound."""
+    from repro_torch.kernels import fp8_dot as f8
+    g = torch.Generator(device=device)
+    g.manual_seed(2)
+    rows = []
+    for k in FP8_PROBE_K:
+        a = fp8_operand(g, (1, 128, k), device, 2.0, spread=4)
+        b = fp8_operand(g, (1, k, 128), device, 0.05, spread=4)
+        want = f8.fp8_dot_ref(a, b)[0]
+        exact = (a.to(torch.float32).double()
+                 @ b.to(torch.float32).double())[0]
+        bound = k * 2.0 ** -23 * f8.fp8_dot_ref(
+            a.to(torch.float32).abs(), b.to(torch.float32).abs())[0]
+        ap = f8.pack_k_major(a)[0]
+        bp = f8.pack_k_major(b.transpose(1, 2))[0]
+        for route, every in FP8_PROBE_ROUTES:
+            got = f8.mma_probe(ap, bp, route, every)
+            rows.append(dict(
+                route=route, promote_every=every, k=k,
+                max_err_over_bound=float(((got - want).abs() / bound)
+                                         .max()),
+                max_err_over_bound_exact=float(
+                    ((got.double() - exact).abs() / bound.double()).max())))
+    torch.cuda.synchronize()
+    emit("fp8_probe", shipped={"route": f8.ROUTE[0],
+                               "promote_every": f8.ROUTE[1]},
+         tolerance="max_err_over_bound <= 1", rows=rows)
+    shipped = [r for r in rows
+               if (r["route"], r["promote_every"]) == f8.ROUTE]
+    check(all(r["max_err_over_bound"] <= 1.0 for r in shipped),
+          "fp8 probe: the kernel's route misses the bound", shipped)
+
+
 def phase_fp8_times(device):
     """The fp8 kernel at the MLP shapes (bf16 result, as the path writes
-    it) beside its bound, its plain version, ``torch._scaled_mm`` (the one
-    library call of the same function, unit scales) and the bf16
-    ``torch.matmul`` of the same shape."""
+    it) on packed operands, as the path hands them over, beside its bound
+    (at the fp8 rate, and at the f16 rate its route runs at), its plain
+    version, ``torch._scaled_mm`` (the one library call of the same
+    function, unit scales), the bf16 ``torch.matmul`` of the same shape,
+    and ``fp8_dot_cuda`` on the unpacked operands (the pack included)."""
     from repro_torch.kernels import fp8_dot as f8
     g = torch.Generator(device=device)
     g.manual_seed(1)
@@ -3271,11 +3345,13 @@ def phase_fp8_times(device):
         b = fp8_operand(g, (1, k, n), device, 0.05)
         bcol = b[0].t().contiguous().t()        # column-major, as it takes
         a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        got = f8.fp8_dot_cuda(a, b, torch.bfloat16)
+        ap, bp = f8.pack_k_major(a), f8.pack_k_major(b.transpose(1, 2))
+        got = f8.fp8_dot_packed(ap, bp, torch.bfloat16)
         want = f8.fp8_dot_ref(a, b, torch.bfloat16)
         lib = torch._scaled_mm(a[0], bcol, scale_a=one, scale_b=one,
                                out_dtype=torch.bfloat16)
         ops_ms = 2.0 * m * n * k / PEAK_FP8_OPS_PER_S * 1e3
+        route_ms = 2.0 * m * n * k / PEAK_BF16_OPS_PER_S * 1e3
         bytes_ms = (m * k + k * n + 2 * m * n) / PEAK_BYTES_PER_S * 1e3
         rows.append(dict(
             name="fp8_dot", label=label, shape=[m, k, n], dtype="float8_e4m3fn",
@@ -3283,19 +3359,24 @@ def phase_fp8_times(device):
             max_abs_err=max_abs_err(got, want),
             bf16_ulps_vs_plain=bf16_ulps(got, want),
             scaled_mm_max_abs_diff=max_abs_err(lib, want[0]),
-            ms=event_ms(lambda: f8.fp8_dot_cuda(a, b, torch.bfloat16),
+            ms=event_ms(lambda: f8.fp8_dot_packed(ap, bp, torch.bfloat16),
                         reps=10),
+            with_pack_ms=event_ms(
+                lambda: f8.fp8_dot_cuda(a, b, torch.bfloat16), reps=10),
             plain_ms=event_ms(lambda: f8.fp8_dot_ref(a, b, torch.bfloat16),
                               reps=5),
             bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            route=f"{f8.ROUTE[0]} wgmma", route_bound_ms=max(route_ms,
+                                                              bytes_ms),
             library_ms=event_ms(lambda: torch._scaled_mm(
                 a[0], bcol, scale_a=one, scale_b=one,
                 out_dtype=torch.bfloat16), reps=10),
             bf16_matmul_ms=event_ms(lambda: a16[0] @ b16[0], reps=10)))
-        del a, b, bcol, a16, b16, got, want, lib
+        del a, b, ap, bp, bcol, a16, b16, got, want, lib
         torch.cuda.empty_cache()
-    emit("fp8_times", peak_fp8_ops_per_s=PEAK_FP8_OPS_PER_S, kernels=rows)
+    emit("fp8_times", peak_fp8_ops_per_s=PEAK_FP8_OPS_PER_S,
+         peak_f16_ops_per_s=PEAK_BF16_OPS_PER_S, kernels=rows)
     return rows
 
 
@@ -3598,6 +3679,8 @@ def main():
     if "kernels" in phases:
         errs.update(phase_kernels(device))
         errs.update(phase_fp8_kernels(device))
+    if "fp8_probe" in phases:
+        phase_fp8_probe(device)
     if "fused_kernels" in phases:
         errs.update(phase_fused_kernels(device, args.seq, args.wkv_seq))
     counts = dict.fromkeys(REPLACES, 0)
@@ -3645,6 +3728,8 @@ def main():
     rows = []
     if "times" in phases:
         rows = phase_times(device, args.seq) + phase_fp8_times(device)
+    elif "fp8_times" in phases:
+        rows = phase_fp8_times(device)
     if "times" in phases or "fused_times" in phases:
         rows += phase_fused_times(device, args.seq, args.wkv_seq)
     if "profile" in phases:

@@ -439,7 +439,7 @@ class _Grads:
     """
 
     __slots__ = ("seq0", "last", "root", "fwd", "bwd", "orphan", "node",
-                 "claimed", "saved")
+                 "claimed", "saved", "pending")
 
     def __init__(self):
         self.seq0 = self.last = _sequence_nr()
@@ -452,6 +452,9 @@ class _Grads:
         # forward inputs a derivative formula needs and autograd does not
         # save (``_FORMULAS``), by node number
         self.saved: Dict[int, torch.Tensor] = {}
+        # what a formula keeps between the ops of one node's run, by node
+        # number
+        self.pending: Dict[int, dict] = {}
 
     def _orphan(self) -> _Frame:
         if self.orphan is None:
@@ -556,6 +559,62 @@ def remat(fn, *args):
                       preserve_rng_state=False)
 
 
+class _LoopConst(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def loop_const(x):
+    """``x`` as an input of a loop body that is the same on every trip (a
+    const of the reference's ``lax.scan``): each trip's cotangent of it
+    reaches ``x`` from a node of the body's frame, so their sum is a site
+    of the loop body (``add_any``), as in the reference's scan transpose."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _LoopConst.apply(x)
+
+
+def _formulas_walk() -> bool:
+    """Whether a walk that follows the reference's formulas runs on this
+    thread (the autograd engine's threads carry the caller's modes)."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    mode = _get_current_dispatch_mode()
+    return isinstance(mode, _WalkMode) and mode.formulas
+
+
+class _ZeroCotangents(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, *xs):
+        ctx.like = [(x.shape, x.dtype, x.device) for x in xs]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not _formulas_walk():
+            return (g,) + (None,) * len(ctx.like)
+        return (g,) + tuple(torch.zeros(s, dtype=d, device=v)
+                            for s, d, v in ctx.like)
+
+
+def zero_cotangents(out, *xs):
+    """``out``, and in the backward pass of a walk that follows the
+    reference's formulas a zero cotangent for each of ``xs``, delivered
+    before any other (its node runs first: ``out`` is downstream of every
+    use of ``xs``). The reference's scan transpose starts the cotangent of
+    a final carry, and the sum of a const's cotangents, at zero and adds
+    each trip's to it (``add_any``, a site); autograd starts from the first
+    that arrives. A plain run delivers none."""
+    if not (torch.is_grad_enabled()
+            and any(x.requires_grad for x in (out,) + xs)):
+        return out
+    return _ZeroCotangents.apply(out, *xs)
+
+
 # --------------------------------------------------------------------------
 # derivative formulas: the reference's elementary ops
 # --------------------------------------------------------------------------
@@ -618,11 +677,182 @@ def _unbroadcast(mode, node, frame, pos, func, args):
     return mode.on_output(frame, pos, 0, "reduce_sum", func(*args))
 
 
+_SUM_DIM = torch.ops.aten.sum.dim_IntList
+_WHERE = torch.ops.aten.where.self
+_EQ = torch.ops.aten.eq.Tensor
+_GE = torch.ops.aten.ge.Scalar
+_DIV = torch.ops.aten.div.Tensor
+_DIV_SCALAR = torch.ops.aten.div.Scalar
+_NEG = torch.ops.aten.neg.default
+_MUL = torch.ops.aten.mul.Tensor
+_SQUEEZE = (torch.ops.aten.squeeze.dim, torch.ops.aten.squeeze.dims)
+
+
+def _emitter(mode, frame, pos):
+    """Sites from ``pos`` on, one position each: ``emit(prim, value)``."""
+    at = [pos]
+
+    def emit(prim, val):
+        p = at[0] if at[0] is not None else _Grads._next(frame, True)[1]
+        at[0] = None
+        return mode.on_output(frame, p, 0, prim, val)
+    return emit
+
+
+def _state(mode, node) -> dict:
+    return mode.grads.pending.setdefault(node._sequence_nr(), {})
+
+
+def _needs(node) -> Tuple[bool, ...]:
+    """Which of the node's inputs take a gradient."""
+    return tuple(f is not None for f, _ in node.next_functions)
+
+
+def _amax_backward(mode, node, frame, pos, func, args):
+    """``reduce_max``'s JVP converts the location mask to the cotangent's
+    type (``convert_element_type``) and sums it into the count
+    (``reduce_sum``), both sites; autograd sums the boolean mask into an
+    integer. The division by the count and the product with the mask are
+    the same ops in both."""
+    if func is _EQ:
+        _state(mode, node)["dtype"] = args[0].dtype
+        return _MISS
+    if func is not _SUM_DIM or args[0].dtype != torch.bool:
+        return _MISS
+    emit = _emitter(mode, frame, pos)
+    mask = emit("convert_element_type",
+                args[0].to(_state(mode, node)["dtype"]))
+    return emit("reduce_sum", func(mask, *args[1:]))
+
+
+def _tie_weight(x, out, other_is_out):
+    """``max``'s JVP weight of one operand: 1 where it is the result, over 2
+    where the other operand is the result too."""
+    return (x == out).to(x.dtype) / torch.where(other_is_out, 2.0, 1.0).to(
+        x.dtype)
+
+
+def _maximum_backward(mode, node, frame, pos, func, args):
+    """``max``'s JVP splits a tie in halves through converted masks: each
+    operand's weight is a division (a site, both computed once), its
+    cotangent the product with the weight (a site). autograd halves the
+    cotangent at a tie and selects; its ``grad / 2`` is no site here."""
+    if pos < 0:
+        return _MISS
+    st = _state(mode, node)
+    if func is _EQ:
+        if "w" not in st:
+            x, y = args
+            out = torch.maximum(x, y)
+            emit = _emitter(mode, frame, pos)
+            wx = emit("div", _tie_weight(x, out, y == out))
+            wy = emit("div", _tie_weight(y, out, x == out))
+            # autograd runs the second operand's branch first
+            needs = _needs(node)
+            st["w"] = [w for w, need in ((wy, needs[1]), (wx, needs[0]))
+                       if need]
+        return func(*args)
+    if func is _WHERE:
+        return mode.on_output(frame, pos, 0, "mul", args[2] * st["w"].pop(0))
+    if func is _DIV_SCALAR:
+        return func(*args)
+    return _MISS
+
+
+def _clamp_backward(mode, node, frame, pos, func, args):
+    """``max(x, c)``'s JVP (``jnp.maximum`` with a constant): the weight
+    ``(x == out) / (1 + (c == out))`` is a division and the cotangent its
+    product, both sites; autograd selects. A clamp with an upper bound
+    keeps autograd's formula (its ``where`` also reads the ``le`` mask)."""
+    if pos < 0 or getattr(node, "_saved_max", None) is not None:
+        return _MISS
+    st = _state(mode, node)
+    if func is _GE and "x" not in st:
+        st["x"], st["c"] = args
+        return func(*args)
+    if func is _WHERE and "x" in st:
+        x = st["x"]
+        out = torch.clamp(x, min=st["c"])
+        emit = _emitter(mode, frame, pos)
+        w = emit("div", _tie_weight(x, out, out == st["c"]))
+        return emit("mul", args[1] * w)
+    return _MISS
+
+
+def _div_backward(mode, node, frame, pos, func, args):
+    """``div``'s JVP in the denominator ``y`` is ``g * integer_pow(y, -2) *
+    x``, summed over the axes ``y`` was broadcast along, then negated: an
+    ``integer_pow``, two products and a ``reduce_sum`` as sites, where
+    autograd divides twice. Applies where ``y`` takes a gradient and has
+    the numerator's rank; otherwise ``_unbroadcast``.
+
+    autograd runs the denominator's branch first -- ``x / y``, ``/ y``,
+    ``-g`` and the product, which is its cotangent -- then ``g / y`` (the
+    numerator's, the same in both) if the numerator takes a gradient."""
+    needs = _needs(node)
+    if pos < 0 or len(needs) != 2 or not needs[1]:
+        return _unbroadcast(mode, node, frame, pos, func, args)
+    st = _state(mode, node)
+    if st.get("fallback"):
+        return _unbroadcast(mode, node, frame, pos, func, args)
+    if func is _DIV:
+        n = st["divs"] = st.get("divs", 0) + 1
+        if n == 1:
+            x, y = args
+            if x.dim() != y.dim():
+                st["fallback"] = True
+                return _MISS
+            st["x"], st["y"] = x, y
+        return func(*args) if n <= 2 else _MISS
+    if func is _NEG and "x" in st and "dy" not in st:
+        g, x, y = args[0], st["x"], st["y"]
+        emit = _emitter(mode, frame, pos)
+        t = emit("mul", g * emit("integer_pow", 1.0 / (y * y)))
+        t = emit("mul", t * x)
+        dims = [i for i in range(t.dim()) if y.shape[i] == 1 != t.shape[i]]
+        if dims:
+            t = emit("reduce_sum", t.sum(dims, keepdim=True))
+        st["dy"] = -t
+        return func(*args)
+    if func is _MUL and "dy" in st:
+        return st.pop("dy")
+    return _MISS
+
+
+def _unsqueeze_backward(mode, node, frame, pos, func, args):
+    """``x[..., None]`` is a ``broadcast_in_dim`` to the reference, whose
+    transpose is a ``reduce_sum`` over the new axis (a site); autograd
+    squeezes it away."""
+    if func not in _SQUEEZE or "->" in frame.stack.rpartition("/")[2]:
+        # torch.einsum's own unsqueezes: the reference's einsum is a
+        # dot_general, with no broadcast to transpose
+        return _MISS
+    return mode.on_output(frame, pos, 0, "reduce_sum", func(*args))
+
+
+def _abs_backward(mode, node, frame, pos, func, args):
+    """``abs``'s transpose selects the cotangent or its negation and adds
+    the two branches (``add_any``, a site); autograd multiplies by the
+    sign."""
+    if func is not _MUL:
+        return _MISS
+    g, sign = args
+    return mode.on_output(frame, pos, 0, "add_any",
+                          torch.where(sign >= 0, g, -g))
+
+
 _FORMULAS = {
     "SigmoidBackward0": _sigmoid_backward,
     "RsqrtBackward0": _rsqrt_backward,
     "SumBackward1": _keepdim_sum_backward,
-    **{f"{op}Backward0": _unbroadcast for op in ("Mul", "Div", "Add", "Sub")},
+    **{f"{op}Backward0": _unbroadcast for op in ("Mul", "Add", "Sub")},
+    "DivBackward0": _div_backward,
+    "AmaxBackward0": _amax_backward,
+    "MaximumBackward0": _maximum_backward,
+    "ClampBackward1": _clamp_backward,
+    "ClampMinBackward0": _clamp_backward,
+    "UnsqueezeBackward0": _unsqueeze_backward,
+    "AbsBackward0": _abs_backward,
 }
 
 

@@ -2,8 +2,8 @@
 //
 // Included by flash_attention.cu, whose entry point flash_attention_fwd
 // sends bf16 inputs here; the head note of that file gives the design and
-// what bounds it. This file holds the PTX wrappers (mbarrier, TMA, wgmma)
-// and the kernel.
+// what bounds it. This file holds the kernel and its wgmma wrappers; the
+// pipeline's (mbarrier, TMA) are in kernels/csrc/sm90.cuh.
 //
 // Block: 2 warpgroups of 64 query rows each (128 consecutive rows of one q
 // head), 8 warps, so that a thread may hold up to 255 registers: a ninth
@@ -31,11 +31,12 @@
 // values kBK * 32 bytes apart).
 #pragma once
 
-#include <cuda.h>   // CUtensorMap and its enums only; the encoder is reached
-                    // through cudaGetDriverEntryPoint (no -lcuda)
 #include "quantize_em.cuh"
+#include "sm90.cuh"
 
 namespace fa_sm90 {
+
+using namespace sm90;
 
 using repro_q::RowParams;
 using repro_q::derive_row;
@@ -51,90 +52,10 @@ constexpr int kThreads = 128 * kGroups;
 constexpr int kChunkBytes = kBK * 32;   // one 16-column chunk of a tile
 constexpr float kNegInf = -1e30f;       // the reference's mask constant
 constexpr float kLog2e = 1.4426950408889634f;
-// a pipeline wait that has not advanced for this long traps instead of
-// hanging the card (a stage is refilled within microseconds)
-constexpr unsigned long long kStuckNs = 4000000000ull;
 
 // ---------------------------------------------------------------------------
-// PTX wrappers
+// wgmma of this kernel (the pipeline's PTX wrappers: sm90.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// wait until the barrier's phase with the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = global_ns();
-  for (uint32_t n = 1;; ++n) {
-    if (mbar_try_wait(bar, parity)) return;
-    if ((n & 255u) == 0 && global_ns() - t0 > kStuckNs) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of accumulator registers
-// across a wgmma wait (the asynchronous product writes them behind its back)
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
 
 // shared-memory matrix descriptor, 32-byte swizzle (layout type 3); byte
 // offsets: lbo between 16-value chunks of an MN-major operand (unused for
@@ -630,28 +551,6 @@ flash_fwd_bf16_sm90(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-// a failed cuTensorMapEncodeTiled returns kEncodeError + its CUresult
-constexpr int kEncodeError = 10000;
-
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // The tensor map of q, k or v (B, H, S, cols), bf16, strides in elements, as
 // five dimensions (16 values, row, 16-value chunk, head, batch): a box of

@@ -25,7 +25,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.interpreter import loop_body, remat, scope
+from repro_torch.core.interpreter import (
+    loop_body, loop_const, remat, scope, zero_cotangents,
+)
 from repro_torch.models import common
 from repro_torch.models.common import ParamDef
 
@@ -67,10 +69,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if causal and isinstance(window, int):
         n_win = min(nk, (window + q_chunk - 1 + kv_chunk - 1) // kv_chunk + 1)
 
-    def kv_step(m, l, acc, q_blk, k, v, qp, kj):
+    def kv_step(m, l, acc, q_blk, k_blk, v_blk, qp, kj):
         k0 = kj * kv_chunk
-        k_blk = k[:, :, k0:k0 + kv_chunk]
-        v_blk = v[:, :, k0:k0 + kv_chunk]
         kp = pos[k0:k0 + kv_chunk]
         s = common.einsum("bhgqd,bhkd->bhgqk", q_blk.to(torch.float32),
                           k_blk.to(torch.float32)) * scale
@@ -101,12 +101,19 @@ def flash_attention(q, k, v, *, causal: bool = True,
                         device=q.device)
         acc = torch.zeros((B, Hkv, G, q_chunk, Dv), dtype=torch.float32,
                           device=q.device)
+        # the kv chunks are the scan's xs, as in the reference: one split,
+        # whose transpose concatenates the trips' cotangents (no sum)
+        ks, vs = k.split(kv_chunk, dim=2), v.split(kv_chunk, dim=2)
         for kj in range(start, start + n_win):
             with loop_body("kv_chunk"):
                 # the chunk's indices are bound now: the recompute runs in
                 # the backward pass, after the loop has moved on
                 m, l, acc = remat(functools.partial(kv_step, qp=qp, kj=kj),
-                                  m, l, acc, q_blk, k, v)
+                                  m, l, acc, loop_const(q_blk), ks[kj],
+                                  vs[kj])
+        # the scan's transpose: the final m's cotangent and the sum of the
+        # q block's start at zero
+        acc = zero_cotangents(acc, m, q_blk)
         return acc / torch.clamp(l, min=1e-30)[..., None]
 
     # as in the reference, each q chunk and each kv chunk is recomputed in
@@ -117,10 +124,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
         with loop_body("q_chunk"):
             q0 = qi * q_chunk
             q_blk = qg[:, :, :, q0:q0 + q_chunk]        # (B,Hkv,G,Cq,Dk)
-            outs.append(remat(functools.partial(q_step, qi=qi), q_blk, k, v))
+            outs.append(remat(functools.partial(q_step, qi=qi), q_blk,
+                              loop_const(k), loop_const(v)))
 
-    # outs: nq x (B, Hkv, G, Cq, Dv) -> (B, Hq, S, Dv)
-    out = torch.cat(outs, dim=3).reshape(B, Hq, S, Dv)
+    # outs: nq x (B, Hkv, G, Cq, Dv) -> (B, Hq, S, Dv); the sums of k's and
+    # v's cotangents over the q chunks start at zero
+    out = zero_cotangents(torch.cat(outs, dim=3), k, v).reshape(B, Hq, S, Dv)
     return out.to(v.dtype)
 
 

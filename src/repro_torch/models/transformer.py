@@ -399,10 +399,15 @@ def _global_frame(cfg: ArchConfig, idx: int):
 
 def token_nll(logits, labels, mask=None):
     """Mean token cross-entropy (f32), log-sum-exp written out from the
-    reference's elementary steps."""
+    reference's elementary steps (``jax.nn.logsumexp``): the shift by the
+    maximum carries no gradient (a non-finite maximum shifts by 0), and the
+    log is taken of ``|sumexp|``."""
     amax = logits.amax(dim=-1, keepdim=True)
+    # finite iff |x| < inf (not NaN): torch.isfinite dispatches a ``mul``,
+    # which the counters would charge to the loss
+    amax = torch.where(amax.abs() < math.inf, amax, 0.0).detach()
     sumexp = torch.exp(logits - amax).sum(dim=-1)
-    logz = torch.log(sumexp) + amax[..., 0]
+    logz = torch.log(torch.abs(sumexp)) + amax[..., 0]
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))
     nll = logz - gold[..., 0]
     if mask is not None:

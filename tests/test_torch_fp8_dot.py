@@ -8,6 +8,10 @@
   atol 1e-5``, as ``tests/test_fused_epilogue.py`` holds native against
   emulated (identical operand values; the f32 sums may run in another
   order).
+* The kernel's operand layout on the CPU: ``pack_k_major`` writes each
+  operand K-major, zero-padded to whole k-tiles, with the values
+  ``encode_e4m3`` stores; ``fp8_dot_general`` goes through it on the plain
+  path too, and the packed wrapper raises on what the kernel does not take.
 * ``truncate(native_fp8=True)`` against the port's emulated path and the
   reference's native path, on the reference's toy dot and on the 2-layer
   smoke h2o-danube-1.8b loss under an e4m3 ``quantize_dot_inputs`` rule on
@@ -123,6 +127,86 @@ def test_cuda_impl_on_a_cpu_tensor_raises():
     q = tf.encode_e4m3(a)[None]
     with pytest.raises(ValueError, match="CUDA tensors only"):
         tf.fp8_dot_cuda(q, q)
+    assert tf.fp8_dot_cuda.launches == 0
+
+
+@pytest.mark.parametrize("k", [1, 100, 128, 131, 300])
+@pytest.mark.parametrize("source", ["grid_f32", "fp8", "fp8_transposed"])
+def test_packed_operands_decode_to_the_same_values(k, source):
+    """K-major, contiguous, K padded with zeros to a whole k-tile, and the
+    first K columns the bytes ``encode_e4m3`` stores (an inf as NaN),
+    whatever the source's dtype and strides."""
+    r = np.random.RandomState(k)
+    x = torch.from_numpy((r.randn(3, 7, k) * 50).astype(np.float32))
+    x[0, 1, 0] = float("inf")
+    xq = tf.quantize_dot_operand(x)
+    want = tf.encode_e4m3(xq).view(torch.uint8)
+    if source == "grid_f32":
+        src = xq
+    elif source == "fp8":
+        src = tf.encode_e4m3(xq)
+    else:                       # (3, 7, k) as a transposed view
+        src = tf.encode_e4m3(xq).transpose(1, 2).contiguous().transpose(1, 2)
+    p = tf.pack_k_major(src)
+    kp = tf.packed_k(k)
+    assert p.dtype == tf.F8_DTYPE and p.is_contiguous()
+    assert tuple(p.shape) == (3, 7, kp) and kp % tf.K_TILE == 0 and kp >= k
+    bits = p.view(torch.uint8)
+    assert torch.equal(bits[..., :k], want)
+    assert not bits[..., k:].any()
+    assert torch.isnan(p[0, 1, 0].float())
+
+
+@pytest.mark.parametrize("name", ["mm", "bmm", "rhs_transposed"])
+def test_fp8_dot_general_goes_through_the_pack(name, monkeypatch):
+    """The plain path packs both operands as the card's path does -- the
+    lhs as (batch, M, K), the rhs as (batch, N, K) -- and equals the
+    reference."""
+    ls, rs, dn = DOTS[name]
+    r = np.random.RandomState(7)
+    a = (r.randn(*ls) * 40).astype(np.float32)
+    b = (r.randn(*rs) * 40).astype(np.float32)
+    packed = []
+    pack = tf.pack_k_major
+
+    def spy(x):
+        out = pack(x)
+        packed.append((tuple(x.shape), tuple(out.shape)))
+        return out
+
+    monkeypatch.setattr(tf, "pack_k_major", spy)
+    got = tf.fp8_dot_general(torch.from_numpy(a), torch.from_numpy(b),
+                             dn).numpy()
+    want = np.asarray(jf.fp8_dot_general(jnp.asarray(a), jnp.asarray(b), dn))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+    (lc, rc), (lb, rb) = dn
+    k = int(np.prod([ls[d] for d in lc]))
+    nb = int(np.prod([ls[d] for d in lb]))
+    m = int(np.prod(ls)) // (k * nb)
+    n = int(np.prod(rs)) // (k * nb)
+    assert packed == [((nb, m, k), (nb, m, tf.packed_k(k))),
+                      ((nb, n, k), (nb, n, tf.packed_k(k)))]
+
+
+def test_packed_wrapper_raises_on_what_the_kernel_does_not_take():
+    p = tf.pack_k_major(tf.encode_e4m3(torch.ones(2, 8, 40)))
+    q = tf.pack_k_major(tf.encode_e4m3(torch.ones(2, 5, 300)))
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        tf.fp8_dot_packed(p.float(), p)
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        tf.fp8_dot_packed(p[0], p[0])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tf.fp8_dot_packed(p[..., :64].contiguous(), p[..., :64].contiguous())
+    with pytest.raises(ValueError, match="packed K-major"):
+        tf.fp8_dot_packed(p.transpose(0, 1).contiguous().transpose(0, 1), p)
+    with pytest.raises(ValueError, match="do not contract"):
+        tf.fp8_dot_packed(p, q)
+    with pytest.raises(TypeError, match="f32/bf16/f16"):
+        tf.fp8_dot_packed(p, p, torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tf.fp8_dot_packed(p, p)
+    with pytest.raises(ValueError, match="route"):
+        tf.mma_probe(p[0], p[0], "tf32", 1)
     assert tf.fp8_dot_cuda.launches == 0
 
 
