@@ -841,9 +841,10 @@ def phase_main_path(device, layers, seq):
 
 # the mem path's depth unless --layers is given: every float result under
 # memtrace at full depth (24 layers, ~12 s a call, nine calls) would put the
-# default run past 600 s since the serve path came; a location still passes
-# 2^31 elements at any depth
-MEM_LAYERS = 12
+# default run past 600 s since the serve path came, and 12 layers since the
+# statically pruned searches came; a location still passes 2^31 elements at
+# any depth
+MEM_LAYERS = 8
 
 
 def phase_mem_path(device, layers, seq):
@@ -1930,15 +1931,73 @@ def recorded(fn):
     return wrapped
 
 
-def check_search_runs(res, calls, what):
-    """The program ran once to discover scopes, once to enumerate sites, then
-    once per evaluated row (the reference row and each candidate: identity
-    padding never runs), every row with host synchronisation an error."""
+def check_search_runs(res, calls, what, setup_runs=2):
+    """The program ran once to discover scopes, once to enumerate sites
+    (and, pruned, once more for the static analysis), then once per
+    evaluated row (the reference row and each candidate: identity padding
+    never runs), every row with host synchronisation an error."""
     runs = res.evals_used + 1 if res.n_dispatches else 0
-    check(len(calls) == 2 + runs, what, "program runs", len(calls), runs)
-    check(all(m == 0 for _, m in calls[:2])
-          and all(m == 2 for _, m in calls[2:]), what, "sync debug modes",
-          sorted({m for _, m in calls}))
+    check(len(calls) == setup_runs + runs, what, "program runs", len(calls),
+          runs)
+    check(all(m == 0 for _, m in calls[:setup_runs])
+          and all(m == 2 for _, m in calls[setup_runs:]), what,
+          "sync debug modes", sorted({m for _, m in calls}))
+
+
+@contextlib.contextmanager
+def recorded_analysis():
+    """Every ``repro_torch.analysis.analyze`` call inside (the one
+    ``autosearch(static_prune=...)`` makes): its seconds, the card's peak
+    memory during it, and the quantizer launches it made, which must be
+    none (the analysis rounds nothing)."""
+    import repro_torch.analysis as analysis
+    from repro_torch import kernels
+    real, runs = analysis.analyze, []
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        runs.append(dict(
+            analysis_s=time.perf_counter() - t0,
+            analysis_peak_memory_gb=round(
+                torch.cuda.max_memory_allocated() / 2**30, 2),
+            analysis_launches={k: v - before[k] for k, v in
+                               kernels.launch_counts().items()},
+            n_widened=out.n_widened, outputs_finite=out.outputs_finite))
+        return out
+
+    analysis.analyze = wrapped
+    try:
+        yield runs
+    finally:
+        analysis.analyze = real
+
+
+def static_prune_report(base, pruned, runs, launches, what):
+    """The pruned search against the unpruned one: the same assignments and
+    ``final_error``, no more evaluations or dispatches, one analysis that
+    launched no quantizer; the numbers both searches print."""
+    check(len(runs) == 1, what, "analysis runs", len(runs))
+    check(not any(runs[0]["analysis_launches"].values()), what,
+          "the analysis launched a quantizer", runs[0]["analysis_launches"])
+    check(assigns_of(pruned) == assigns_of(base)
+          and pruned.final_error == base.final_error, what,
+          "pruned vs unpruned search", base.table(), pruned.table())
+    check(pruned.evals_used <= base.evals_used
+          and pruned.n_dispatches <= base.n_dispatches, what,
+          pruned.evals_used, base.evals_used)
+    n_decided = sum(v != "UNKNOWN" for rungs in pruned.static_verdicts.values()
+                    for v in rungs.values())
+    check(n_decided == pruned.n_pruned, what, n_decided, pruned.n_pruned)
+    return dict(runs[0], n_decided=n_decided, n_pruned=pruned.n_pruned,
+                evals_used=[base.evals_used, pruned.evals_used],
+                n_dispatches=[base.n_dispatches, pruned.n_dispatches],
+                dynamic_launches=launches,
+                static_verdicts=pruned.static_verdicts)
 
 
 def search_site_policy(res):
@@ -1959,7 +2018,11 @@ def phase_search_path(device, layers, seq):
     cut to ``layers``: every candidate is a swept forward through the
     dynamic quantizer. Held to the hand count of launches, to ``truncate``
     of the searched policy (bit for bit) and to a search with no host
-    synchronisation inside a candidate."""
+    synchronisation inside a candidate. Then the same search with
+    ``static_prune=True``: the same assignments and ``final_error``, the
+    analysis' seconds, peak memory and quantizer launches (none), the rungs
+    it decided, and both searches' evaluations, dispatches and dynamic
+    quantizer launches."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core import truncate, truncate_sweep
@@ -1974,7 +2037,7 @@ def phase_search_path(device, layers, seq):
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()               # the search path starts here
-    t0 = time.perf_counter()
+    t0 = t0_search = time.perf_counter()
     res = autosearch(loss, (params, batch), loss_degradation, SEARCH_BUDGET,
                      threshold=SEARCH_THRESHOLD)
     torch.cuda.synchronize()
@@ -1987,7 +2050,7 @@ def phase_search_path(device, layers, seq):
         handle = sweep(params, batch)
         swept = handle(handle.table(res.policy()))
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()            # ... and ends here
+    counts = kernels.launch_counts()
 
     check_search_runs(res, loss.calls, "search_path")
     rows = res.evals_used + 1
@@ -2027,6 +2090,29 @@ def phase_search_path(device, layers, seq):
           float(lossy), float(swept))
     check(again == res.final_error, "metric of truncate vs final_error",
           again, res.final_error)
+
+    # the same search, statically pruned
+    ploss = recorded(model.loss)
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    with recorded_analysis() as runs:
+        pruned = autosearch(ploss, (params, batch), loss_degradation,
+                            SEARCH_BUDGET, threshold=SEARCH_THRESHOLD,
+                            static_prune=True)
+    torch.cuda.synchronize()
+    pruned_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()            # ... and ends here
+    dyn = counts["quantize_em_dynamic"] - before["quantize_em_dynamic"]
+    check_search_runs(pruned, ploss.calls, "search_path pruned",
+                      setup_runs=3)
+    prows = pruned.evals_used + 1 if pruned.n_dispatches else 0
+    check(dyn == prows * handle.site_executions, "pruned launches", dyn,
+          prows, handle.site_executions)
+    emit("search_path_static_prune", model=cfg.name, n_layers=cfg.n_layers,
+         wall_s=[t1 - t0_search, pruned_s],
+         **static_prune_report(res, pruned, runs,
+                               [during["quantize_em_dynamic"], dyn],
+                               "search_path"))
     del params
     torch.cuda.empty_cache()
     return counts
@@ -2034,6 +2120,50 @@ def phase_search_path(device, layers, seq):
 
 APP_BUDGET = 32
 APP_LADDER = (10, 5, 3)
+PRUNE_BUDGET = 64      # tests/test_analysis.py's Sod search
+
+
+def sod_bf16_static_prune():
+    """Sod in bf16 searched on the card unpruned and with
+    ``static_prune=True``: the same assignments and ``final_error``; the
+    pruned search's evaluations and dispatches are the CPU's (the same
+    pruned search run here on the CPU)."""
+    from repro_torch import kernels
+    from repro_torch.apps import get_app
+    from repro_torch.search import autosearch
+
+    app = get_app("sod")
+    state = app.init_state(torch.bfloat16)
+
+    def search(fn, state, **kw):
+        before = kernels.launch_counts()["quantize_em_dynamic"]
+        res = autosearch(fn, (state,), metric=app.error_metric,
+                         budget=PRUNE_BUDGET,
+                         threshold=app.search_threshold, **kw)
+        torch.cuda.synchronize()
+        return res, kernels.launch_counts()["quantize_em_dynamic"] - before
+
+    t0 = time.perf_counter()
+    base, dyn_base = search(app.run_observables, state)
+    t1 = time.perf_counter()
+    fn = recorded(app.run_observables)
+    with recorded_analysis() as runs:
+        pruned, dyn = search(fn, state, static_prune=True)
+    t2 = time.perf_counter()
+    check_search_runs(pruned, fn.calls, "sod bf16 pruned", setup_runs=3)
+    cpu = autosearch(app.run_observables,
+                     (app.init_state(torch.bfloat16, device="cpu"),),
+                     metric=app.error_metric, budget=PRUNE_BUDGET,
+                     threshold=app.search_threshold, static_prune=True)
+    check((pruned.evals_used, pruned.n_dispatches, pruned.n_pruned)
+          == (cpu.evals_used, cpu.n_dispatches, cpu.n_pruned)
+          and assigns_of(pruned) == assigns_of(cpu), "sod bf16 pruned",
+          "card vs CPU", pruned.table(), cpu.table())
+    return dict(static_prune_report(base, pruned, runs, [dyn_base, dyn],
+                                    "sod bf16"),
+                search_s=[t1 - t0, t2 - t1],
+                cpu_evals_used=cpu.evals_used,
+                cpu_n_dispatches=cpu.n_dispatches)
 
 
 def phase_apps_path(device):
@@ -2105,6 +2235,7 @@ def phase_apps_path(device):
               v.error, err_uni)
         check(ladder_bits == 0, name, "sweep vs truncate", ladder_bits)
         cpu_runs[name] = (app, res)
+    out["sod_bf16_static_prune"] = sod_bf16_static_prune()
     counts = kernels.launch_counts()            # ... and ends here
 
     # the same searches on the CPU, asked for with device="cpu"
@@ -2130,8 +2261,8 @@ def phase_apps_path(device):
 
 
 # the trajectory path's default depth, for the default run's 600 s budget
-# (65 s at 24 layers); --layers 24 runs it whole
-TRAJ_LAYERS = 12
+# (65 s at 24 layers, 33-37 s at 12); --layers 24 runs it whole
+TRAJ_LAYERS = 8
 
 
 def phase_traj_path(device, layers, seq):

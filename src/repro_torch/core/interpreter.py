@@ -646,15 +646,34 @@ def _sigmoid_backward(mode, node, frame, pos, func, args):
 
 
 def _rsqrt_backward(mode, node, frame, pos, func, args):
-    """``rsqrt``'s JVP residual is ``rsqrt(x) / x``; autograd's formula
-    raises the result to the third power. The rest (``* -0.5``, ``* g``)
-    is the same product in both."""
+    """``rsqrt``'s JVP residual is ``-0.5 * (rsqrt(x) / x)``, a division
+    and a product, and the cotangent's product with it; autograd's formula
+    raises the result to the third power and scales the cotangent by -0.5
+    (a policy that rounds products but not divisions tells them apart)."""
+    if func is _MUL_SCALAR and _state(mode, node).pop("residual", False):
+        return args[0]           # the -0.5 is the residual's
     if func is not _POW_SCALAR or args[1] != 3:
         return _MISS
     x = mode.grads.saved.pop(node._sequence_nr(), None)
     if x is None:
         return _MISS
-    return mode.on_output(frame, pos, 0, "div", args[0] / x)
+    _state(mode, node)["residual"] = True
+    emit = _emitter(mode, frame, pos)
+    return emit("mul", emit("div", args[0] / x) * -0.5)
+
+
+def _pow_backward(mode, node, frame, pos, func, args):
+    """``x ** n``'s JVP, ``n * x ** (n - 1)`` times the cotangent: for
+    ``n = 2`` (``square``, as the walk names ``x ** 2``) the power is ``x``
+    itself, no op; for another integer ``n`` it is the reference's
+    ``integer_pow``. autograd raises ``x`` to ``n - 1`` as a float power
+    in both cases (a ``pow`` site)."""
+    if (func is not _POW_SCALAR or not isinstance(args[1], float)
+            or not args[1].is_integer()):
+        return _MISS
+    if args[1] == 1:
+        return args[0]
+    return mode.on_output(frame, pos, 0, "integer_pow", func(*args))
 
 
 def _keepdim_sum_backward(mode, node, frame, pos, func, args):
@@ -685,6 +704,7 @@ _DIV = torch.ops.aten.div.Tensor
 _DIV_SCALAR = torch.ops.aten.div.Scalar
 _NEG = torch.ops.aten.neg.default
 _MUL = torch.ops.aten.mul.Tensor
+_MUL_SCALAR = torch.ops.aten.mul.Scalar
 _SQUEEZE = (torch.ops.aten.squeeze.dim, torch.ops.aten.squeeze.dims)
 
 
@@ -844,6 +864,7 @@ def _abs_backward(mode, node, frame, pos, func, args):
 _FORMULAS = {
     "SigmoidBackward0": _sigmoid_backward,
     "RsqrtBackward0": _rsqrt_backward,
+    "PowBackward0": _pow_backward,
     "SumBackward1": _keepdim_sum_backward,
     **{f"{op}Backward0": _unbroadcast for op in ("Mul", "Add", "Sub")},
     "DivBackward0": _div_backward,

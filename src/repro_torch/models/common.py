@@ -13,7 +13,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.interpreter import scope, shared_body
+from repro_torch.core.interpreter import _formulas_walk, scope, shared_body
 
 
 def resolve_device(device=None) -> torch.device:
@@ -170,9 +170,35 @@ def softplus(x):
         return torch.where(is_nan, total, amax + tail)
 
 
+class _Tanh(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        t = torch.tanh(x)
+        ctx.save_for_backward(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        (t,) = ctx.saved_tensors
+        if not _formulas_walk():
+            return torch.ops.aten.tanh_backward(g, t)
+        e = g * (1 - t)
+        return e + e * t
+
+
+def tanh(x):
+    """``jnp.tanh``. In a walk that follows the reference's derivative
+    formulas its derivative is the reference's JVP: ``1 - t``, the
+    cotangent's product with it, that product times ``t``, and their sum
+    (``add_any``), each a site of the backward frame; autograd's, which a
+    plain run keeps, is one fused op."""
+    return _Tanh.apply(x)
+
+
 def softmax(x, dim: int = -1):
-    """The reference's ``jax.nn.softmax``: max, sub, exp, sum, div."""
-    unnormalized = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    """The reference's ``jax.nn.softmax``: max, sub, exp, sum, div; the
+    shift by the maximum carries no gradient (``stop_gradient`` there)."""
+    unnormalized = torch.exp(x - x.amax(dim=dim, keepdim=True).detach())
     return unnormalized / unnormalized.sum(dim=dim, keepdim=True)
 
 
@@ -184,7 +210,7 @@ def swiglu(gate_up):
 def gelu(x):
     """tanh-approximated GELU, term for term the reference's."""
     inner = math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)
-    return x * (0.5 * (1.0 + torch.tanh(inner)))
+    return x * (0.5 * (1.0 + tanh(inner)))
 
 
 ACTIVATIONS = {

@@ -23,7 +23,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.interpreter import loop_body, scope
+from repro_torch.core.interpreter import loop_body, loop_const, scope
 from repro_torch.models import attention
 from repro_torch.models.common import ParamDef, resolve_device, torch_dtype
 from repro_torch.models.transformer import (
@@ -152,8 +152,12 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
         return _dec_layer(cfg, p_l, x, memory, positions)[0]
 
     for p_l in unstack(params["dec_layers"], cfg.n_layers):
+        # under remat the reference sums the layers' cotangents of the
+        # memory (a const of its checkpointed scan) outside the layer's
+        # scopes; without it, under the cross attention's
+        mem = loop_const(memory) if cfg.remat else memory
         with scope("dec_layer", loop=True):
-            x = _maybe_remat(cfg, body, x, p_l, memory)
+            x = _maybe_remat(cfg, body, x, p_l, mem)
     if last_only:
         x = x[:, -1:]
     with scope("final_norm"):

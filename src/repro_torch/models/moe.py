@@ -56,12 +56,29 @@ def moe_param_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
+class _TopK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, probs, k):
+        values, _ = torch.topk(probs, k, dim=-1)
+        _, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+        ids = order[..., :k]
+        ctx.mark_non_differentiable(ids)
+        ctx.save_for_backward(ids)
+        ctx.shape = probs.shape
+        return values, ids
+
+    @staticmethod
+    def backward(ctx, g, _):
+        (ids,) = ctx.saved_tensors
+        return g.new_zeros(ctx.shape).scatter(-1, ids, g), None
+
+
 def top_k(probs, k: int):
     """(values, ids) of the ``k`` largest entries of the last axis, ties to
-    the lower index as ``lax.top_k`` breaks them."""
-    values, _ = torch.topk(probs, k, dim=-1)
-    _, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    return values, order[..., :k]
+    the lower index as ``lax.top_k`` breaks them. The values' cotangent is
+    scattered to those ids (``top_k``'s transpose), not to the ones
+    ``torch.topk`` picked among equal values."""
+    return _TopK.apply(probs, k)
 
 
 def _routing(p, x, mc: MoEConfig):

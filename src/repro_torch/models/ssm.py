@@ -25,7 +25,9 @@ import math
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.interpreter import loop_body
+from repro_torch.core.interpreter import (
+    loop_body, loop_const, zero_cotangents,
+)
 from repro_torch.models import common
 from repro_torch.models.common import ParamDef
 
@@ -211,7 +213,7 @@ def _rwkv6_mix(p, x, x_prev, cfg: ArchConfig, state):
     v = (xv @ p["wv"].to(x.dtype)).reshape(B, S, H, hd)
     g = common.silu(xg @ p["wg"].to(x.dtype))
 
-    w_log = p["w0"].to(_F32) + torch.tanh(
+    w_log = p["w0"].to(_F32) + common.tanh(
         xw.to(_F32) @ p["w_a"].to(_F32)) @ p["w_b"].to(_F32)
     w = torch.exp(-torch.exp(w_log)).reshape(B, S, H, hd)       # decay in (0,1)
     u = p["bonus"].to(_F32)                                     # (H,hd)
@@ -219,21 +221,29 @@ def _rwkv6_mix(p, x, x_prev, cfg: ArchConfig, state):
     # chunked over the sequence (the reference's chunk structure), token by
     # token inside a chunk; each input is widened once, as the reference's
     # chunking of (r, k, v, w) does
+    # token by token; the steps read ``unbind``'s slices, whose cotangents
+    # are stacked as the reference's scanned inputs' are (a ``select`` per
+    # step would sum them, one ``add_any`` per step)
     c, nch = _chunks(S)
-    r, k, v, w = (t.to(_F32) for t in (r, k, v, w))
+    r, k, v, w = (t.to(_F32).unbind(1) for t in (r, k, v, w))
+    # ``u`` is a const of both scans: its cotangent sums over a chunk's
+    # steps and over the chunks start at zero, as does the final state's
     s = state.to(_F32)
     ys = []
     for ci in range(nch):
         with loop_body("chunk"):
+            u_c = loop_const(u)
             for t in range(ci * c, (ci + 1) * c):
                 with loop_body("step"):
-                    r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
+                    r_t, k_t, v_t, w_t = r[t], k[t], v[t], w[t]
                     kv = k_t[..., :, None] * v_t[..., None, :]  # (B,H,hd,hd)
-                    ys.append(common.einsum("bhi,bhij->bhj", r_t,
-                                            s + u[..., None] * kv))
+                    ys.append(common.einsum(
+                        "bhi,bhij->bhj", r_t,
+                        s + loop_const(u_c)[..., None] * kv))
                     s = w_t[..., None] * s + kv
+            s = zero_cotangents(s, u_c)
     state = s
-    y = torch.stack(ys, dim=1).reshape(B, S, d)
+    y = zero_cotangents(torch.stack(ys, dim=1), s, u).reshape(B, S, d)
 
     # per-head group norm (RWKV uses GroupNorm(H); rms per head here)
     yh = y.reshape(B, S, H, hd).to(_F32)

@@ -47,6 +47,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import api
 from repro_torch.core.memmode import upload
@@ -313,16 +314,31 @@ def autosearch(fn: Callable, args: Sequence = (),
     ``profile.ladder_hints`` / ``MiniApp.warm_hints``, a ``SearchResult``'s
     ``hints()``, or a ``PolicyArtifact``, which may be passed itself.
 
-    Not ported yet, and raising ``NotImplementedError``: ``static_prune``
-    (the static analysis, ROADMAP Queue A item 10) and ``mesh`` /
-    ``in_shardings`` (distribution, item 11). ``memflag_threshold`` is
-    accepted for signature parity and unused, as in the reference.
+    ``static_prune`` turns on the abstract-interpretation pre-pass
+    (``repro_torch.analysis``): ``True`` calibrates input ranges from the
+    concrete tensor leaves of ``args`` / ``kwargs``; a sequence supplies one
+    ``analysis.AbsVal`` (or concrete array) per tensor leaf. The analysis is
+    one more run of the program, rounding nothing and launching no
+    quantizer. Ladder rungs it proves ``EXACT`` (solo run bit-identical to
+    the reference, so the probe would measure ``metric(ref, ref)``) or
+    ``OVERFLOW_CERTAIN`` (a non-finite provably reaches an output) are
+    decided without a dispatch; ``UNKNOWN`` rungs keep dynamic probing.
+    Budget accounting mirrors the unpruned schedule, so the assignments
+    and ``final_error`` are bit-identical to ``static_prune=False`` with
+    fewer ``evals_used`` and dispatches whenever anything was decided (the
+    reference's contract, metric assumptions included: a deterministic
+    metric of the two observable trees that rejects a non-finite
+    candidate). With ``warm_start`` hints the verdicts pre-seed the
+    bisection brackets, which requires ``metric(ref, ref) == 0.0`` exactly
+    and raises otherwise. Verdicts land in ``SearchResult.static_verdicts``
+    and artifact provenance.
+
+    Not ported yet, and raising ``NotImplementedError``: ``mesh`` /
+    ``in_shardings`` (distribution, ROADMAP Queue A item 11).
+    ``memflag_threshold`` is accepted for signature parity and unused, as
+    in the reference.
     """
     del memflag_threshold, batch_axis  # legacy knob; one device, no axis
-    if static_prune is not False and static_prune is not None:
-        raise NotImplementedError(
-            "autosearch(static_prune=...) needs the static analysis "
-            "(ROADMAP Queue A item 10), which is not ported yet")
     if mesh is not None or in_shardings is not None:
         raise NotImplementedError(
             "autosearch(mesh=..., in_shardings=...) needs distribution "
@@ -353,6 +369,9 @@ def autosearch(fn: Callable, args: Sequence = (),
     scopes = list(scopes)
 
     hints = _frontier_hints(warm_start, scopes)
+    sv = None      # analysis.StaticVerdicts when static_prune is active
+    _V = None      # the Verdict enum, bound alongside sv
+    virtual = 0    # unpruned-schedule budget charges (mirrors `evals`)
 
     def result(assignments, final_err):
         return SearchResult(
@@ -362,7 +381,9 @@ def autosearch(fn: Callable, args: Sequence = (),
             n_compiles=min(dispatches, 1), n_sites=n_sites,
             n_dispatches=dispatches,
             n_warm_hints=len(hints), probe_batch=K,
-            max_dispatch_rows=max_rows, n_devices=1, n_traces=n_traces)
+            max_dispatch_rows=max_rows, n_devices=1, n_traces=n_traces,
+            static_verdicts=sv.to_json() if sv is not None else None,
+            n_pruned=sv.n_decided if sv is not None else 0)
 
     cand_widths = [w for w in widths if w < 23]
     n_sites = 0
@@ -393,7 +414,24 @@ def autosearch(fn: Callable, args: Sequence = (),
     K = len(cand_widths) + 1
     identity = handle.identity_table()
 
+    if static_prune is not False and static_prune is not None:
+        from repro_torch.analysis import analyze, scope_rung_verdicts
+        from repro_torch.analysis.verdicts import Verdict as _V
+        leaves = [x for x in pytree.tree_leaves((tuple(args), kwargs))
+                  if isinstance(x, torch.Tensor)]
+        calib = leaves if static_prune is True else list(static_prune)
+        # the enumeration's grad mode, so the records' keys are its sites'
+        with torch.no_grad():
+            analysis = analyze(fn, args, kwargs, calib)
+        sv = scope_rung_verdicts(analysis, handle.index,
+                                 [s.path for s in scopes], cand_widths,
+                                 exp_bits)
+        log(f"static analysis: {sv.n_decided} rungs decided, "
+            f"{analysis.n_widened} sites widened, outputs "
+            f"{'finite' if sv.outputs_finite else 'NOT provably finite'}")
+
     ref_host: List[Optional[object]] = [None]  # full-precision outputs (np)
+    self_err: List[Optional[float]] = [None]   # metric(ref, ref), with ref
 
     def dispatch(rows: List[np.ndarray]) -> list:
         """Evaluate the real rows of one dispatch; numpy outputs per row."""
@@ -427,6 +465,20 @@ def autosearch(fn: Callable, args: Sequence = (),
             if ref_host[0] is None:
                 ref_host[0] = host[0]
                 base = 1
+                if sv is not None:
+                    # an EXACT rung's outputs are bit-identical to the
+                    # reference's, so the measured metric(ref, ref) is what
+                    # its probe would return (not always 0.0: poisson grades
+                    # the reference against its own tolerance)
+                    self_err[0] = metric(ref_host[0], ref_host[0])
+                    if hints and not self_err[0] == 0.0:  # '==' vs NaN too
+                        raise ValueError(
+                            "static_prune with warm_start requires "
+                            "metric(ref, ref) to be exactly 0.0, got "
+                            f"{self_err[0]!r}: the warm bisection "
+                            "pre-seeds EXACT rungs as passing before the "
+                            "reference exists to measure — rerun with "
+                            "warm_start=None or static_prune=False")
             for j, tag in enumerate(chunk):
                 err = metric(ref_host[0], host[base + j])
                 history.append((tag, err))
@@ -480,6 +532,19 @@ def autosearch(fn: Callable, args: Sequence = (),
         hi = {si.path: nw for si in scopes}   # smallest index known failing
         err_at: Dict[Tuple[str, int], float] = {}
 
+        if sv is not None:
+            # EXACT rungs are known passing at exactly 0.0 (checked against
+            # the measured metric(ref, ref) at the first dispatch),
+            # OVERFLOW_CERTAIN rungs known failing: neither probes
+            for si in scopes:
+                for i, w in enumerate(cand_widths):
+                    v = sv.get(si.path, w)
+                    if v == _V.EXACT:
+                        err_at[(si.path, i)] = 0.0
+                        lo[si.path] = max(lo[si.path], i)
+                    elif v == _V.OVERFLOW_CERTAIN:
+                        hi[si.path] = min(hi[si.path], i)
+
         def seed(si) -> int:
             pred = hints.get(si.path, _UNHINTED)
             if pred is _UNHINTED:
@@ -532,6 +597,45 @@ def autosearch(fn: Callable, args: Sequence = (),
                 accept(si, cand_widths[b], err_at[(si.path, b)])
             else:
                 accept(si, widths[0], 0.0)     # nothing admissible: full
+    elif sv is not None:
+        # ---- statically pruned exhaustive ladder ---------------------------
+        # Budget windows mirror the unpruned schedule (`virtual` charges
+        # what the unpruned search would have), so each scope sees the same
+        # probe window and accepts the same width; only UNKNOWN rungs
+        # dispatch, all of them through one chunked eval_candidates call.
+        plan: List[Tuple[ScopeInfo, Optional[List[int]], List[int]]] = []
+        for si in scopes:
+            afford = budget - virtual - reserve
+            if afford <= 0:
+                plan.append((si, None, []))   # window exhausted: full prec
+                continue
+            probe = cand_widths[:afford]
+            virtual += len(probe)
+            live = [w for w in probe if sv.get(si.path, w) == _V.UNKNOWN]
+            exact = [w for w in probe if sv.get(si.path, w) == _V.EXACT]
+            plan.append((si, live, exact))
+        flat = [(si, w) for si, live, _ in plan if live for w in live]
+        flat_errs = eval_candidates([
+            (f"ladder:{si.path}:m{w}", policy_of({}, (si.path, w)))
+            for si, w in flat]) if flat else []
+        if ref_host[0] is None and any(exact for _, _, exact in plan):
+            # every probe was decided, but an EXACT rung needs the measured
+            # metric(ref, ref): one dispatch the unpruned search pays too
+            eval_candidates([])
+        z = self_err[0]
+        pos = 0
+        for si, live, exact in plan:
+            if live is None:
+                assignments[si.path] = ScopeAssignment(si, widths[0], 0.0)
+                continue
+            errs = flat_errs[pos:pos + len(live)]
+            pos += len(live)
+            passing = ([(w, e) for w, e in zip(live, errs) if e <= threshold]
+                       + [(w, z) for w in exact if z <= threshold])
+            if passing:
+                accept(si, *min(passing))    # narrowest admissible width
+            else:
+                assignments[si.path] = ScopeAssignment(si, widths[0], 0.0)
     else:
         for si in scopes:
             afford = budget - evals - reserve
@@ -551,14 +655,38 @@ def autosearch(fn: Callable, args: Sequence = (),
                 assignments[si.path] = ScopeAssignment(si, widths[0], 0.0)
 
     # ---- phase 2: joint check + greedy-exclusion refinement ----------------
+    if sv is not None and hints:
+        # hint probes are not window-mirrored; phase 2 mirrors actual spend
+        virtual = evals
+
+    def spent() -> int:
+        """Budget consumed for control flow: the unpruned schedule's charges
+        when static pruning is on (so windows and loop exits match the
+        unpruned search decision for decision), actual evals otherwise."""
+        return virtual if sv is not None else evals
+
     if policy_of(assignments).rules:
-        final_err = eval_candidates([("joint", policy_of(assignments))])[0]
+        if sv is not None and all(
+                sv.get(p, a.man_bits) == _V.EXACT
+                for p, a in assignments.items()
+                if a.fmt(exp_bits) is not None):
+            # every truncated scope sits on an EXACT rung: every quantize of
+            # the joint policy is the identity, so the joint run would
+            # measure metric(ref, ref), with no dispatch
+            if ref_host[0] is None:
+                eval_candidates([])
+            final_err = self_err[0]
+            history.append(("joint", final_err))
+        else:
+            final_err = eval_candidates([("joint",
+                                          policy_of(assignments))])[0]
+        virtual += 1
     else:
         final_err = 0.0  # nothing truncated -> trivially exact, no eval owed
         history.append(("joint", 0.0))
     log(f"joint policy err {final_err:.3e}")
 
-    while refine and final_err > threshold and evals < budget:
+    while refine and final_err > threshold and spent() < budget:
         live = [p for p, a in assignments.items()
                 if not a.excluded and a.fmt(exp_bits) is not None]
         if not live:
@@ -566,15 +694,41 @@ def autosearch(fn: Callable, args: Sequence = (),
         # most fragile first: the scope whose solo error was worst is the
         # likeliest culprit, so it is tried even under a clipped budget
         live.sort(key=lambda p: -assignments[p].error_at_accept)
-        live = live[:budget - evals]
-        errs = eval_candidates([
-            (f"exclude?:{p}", policy_of(assignments, minus=p))
-            for p in live])
+        live = live[:budget - spent()]
+        if sv is not None:
+            virtual += len(live)
+            # a scope whose format is universally exact (its grid covers the
+            # sites' whole carrier dtype) quantizes nothing even inside a
+            # perturbed joint policy: excluding it leaves the joint run as
+            # it is, so its trial error IS final_err
+            measured = [p for p in live
+                        if not sv.is_universal(p, assignments[p].man_bits)]
+            m_errs = eval_candidates([
+                (f"exclude?:{p}", policy_of(assignments, minus=p))
+                for p in measured]) if measured else []
+            by_scope = dict(zip(measured, m_errs))
+            errs = []
+            for p in live:
+                if p in by_scope:
+                    errs.append(by_scope[p])
+                else:
+                    errs.append(final_err)
+                    history.append((f"exclude?:{p}", final_err))
+        else:
+            errs = eval_candidates([
+                (f"exclude?:{p}", policy_of(assignments, minus=p))
+                for p in live])
         best = int(np.argmin(errs))
         victim = live[best]
         assignments[victim].excluded = True
         final_err = errs[best]
         history.append((f"exclude:{victim}", final_err))
         log(f"exclude {victim} (paper §6.3) -> err {final_err:.3e}")
+
+    if sv is not None and ref_host[0] is None:
+        # every rung decided, the joint run and every exclusion substituted:
+        # the reference is still measured, so the metric contract above is
+        # checked before reporting
+        eval_candidates([])
 
     return result(assignments, final_err)

@@ -468,13 +468,19 @@ def test_one_enumeration_and_only_the_real_rows_run():
 
 def test_what_is_not_ported_raises():
     _, ta = toy_args()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ts.autosearch(ttoy, ta, ts.rel_error, 8, static_prune=True)
+    # the static analysis is ported: a pruned search returns the unpruned
+    # one's assignments
+    pruned = ts.autosearch(ttoy, ta, ts.rel_error, 8, threshold=1e-2,
+                           static_prune=True)
+    assert pruned.static_verdicts is not None
     with pytest.raises(NotImplementedError, match="item 11"):
         ts.autosearch(ttoy, ta, ts.rel_error, 8, mesh=object())
     with pytest.raises(NotImplementedError, match="item 11"):
         ts.autosearch(ttoy, ta, ts.rel_error, 8, in_shardings=())
     res = ts.autosearch(ttoy, ta, ts.rel_error, 8, threshold=1e-2)
+    assert pruned.assignments.keys() == res.assignments.keys()
+    assert [(a.man_bits, a.excluded) for a in pruned.assignments.values()] \
+        == [(a.man_bits, a.excluded) for a in res.assignments.values()]
     # artifacts are ported: the search packages into one, and anything
     # that is neither a mapping nor carries hints is refused as warm_start
     assert res.to_artifact("toy").policy == res.policy()
