@@ -6,7 +6,7 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's twelve paths:
+plain PyTorch version on the card, then drives the port's thirteen paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
@@ -26,6 +26,14 @@ plain PyTorch version on the card, then drives the port's twelve paths:
     depth cut to 4 layers, every candidate a swept
     forward through the dynamic quantizer, held to a hand count of launches
     and to ``truncate`` of the searched policy;
+  * the mesh path — the same model and shapes on a DeviceMesh of one rank
+    (NCCL): ``truncate_sweep(mesh=)`` on a 6-rung and a 5-rung ladder,
+    ``memtrace(mesh=, in_shardings=batch_sharding)`` of a DTensor batch and
+    ``autosearch(mesh=)``, each held to its unsharded twin bit for bit; and
+    two ranks on the same card (gloo, 2 layers): a probe axis of two with
+    an identity-padded ladder, and ``RaptorReport`` /
+    ``TrajectoryReport.allreduce`` of a per-example program against
+    ``merge_all``;
   * the apps path — the Sod, heat and Poisson mini-apps at their default
     sizes: ``autosearch`` against each app's FP64 oracle and budget, the
     uniform-low strawman, a swept ladder against ``truncate``, and the same
@@ -101,16 +109,16 @@ one library call that computes the same function (where there is one). The
 last line is ``{"ok": true, "device": {...}}``.
 
 Options (for debugging at a smaller size; the defaults are the full run):
-``--layers N`` cuts the depth (the search and artifact paths' is 4, the
-mem, trajectory and fp8 paths' 12, the train path's 8 and the guard
-path's 2 unless given; on the models path, olmoe-1b-7b's, 8 unless
-given),
+``--layers N`` cuts the depth (the search, mesh and artifact paths' is 4,
+the mem and trajectory paths' 8, the fp8 path's 12, the train path's 8 and
+the guard path's 2 unless given; on the models path, olmoe-1b-7b's, 8
+unless given),
 ``--seq S`` the sequence length of the
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,mem_path,traj_path,fused_path,small_ref,
-times,reconcile,search_path,apps_path,artifact_path,models_path,serve_path,
-train_path,fp8_path,guard_path`` (``kernels`` includes the fp8
+times,reconcile,search_path,mesh_path,apps_path,artifact_path,models_path,
+serve_path,train_path,fp8_path,guard_path`` (``kernels`` includes the fp8
 kernel's checks, ``times`` its times; ``fp8_times`` alone times it)
 or adds
 ``fp8_probe`` (the fp8 kernel's design step 0: which tensor-core route holds
@@ -211,6 +219,17 @@ def bit_mismatches(a: torch.Tensor, b: torch.Tensor) -> int:
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Two f32 scalars (losses) with the same bit pattern."""
     return bool(a.view(torch.int32) == b.view(torch.int32))
+
+
+def equal_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two tensors of the same shape and dtype with the same bit patterns
+    (NaNs included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        kind = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(kind[t.element_size()]) for t in (a, b))
+    return bool(torch.equal(a, b))
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -715,6 +734,226 @@ def phase_fused_kernels(device, seq, wkv_seq):
     check(sum(fused.values()) == 0, "fused vs unfused", fused)
     return {"flash_attention": flash_path[str(torch.bfloat16)]["max_abs_err"],
             "wkv6": wkv_path["y_err"]}
+
+
+MESH_LADDER = (15, 10, 7, 5, 3, 2)   # e8m<m> rungs of the sharded sweeps
+MESH_TWO_LAYERS = 2                  # the two-rank check: full width, depth 2
+MESH_TWO_SEQ = 2048
+
+
+def mesh_rank(rank, world, store, out, seq):
+    """One of the two ranks of ``mesh_path``'s check, both on the one card
+    (``cuda:0``): NCCL refuses two ranks on one device, so the group is
+    gloo, which the port's collectives feed from host copies. Writes
+    ``rank<r>.json``."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import (TruncationPolicy, memtrace,
+                                  profile_trajectory, truncate_sweep)
+    from repro_torch.core.memmode import RaptorReport
+    from repro_torch.launch.mesh import make_probe_mesh, make_profile_mesh
+    from repro_torch.models import Model
+    from repro_torch.profile.trajectory import TrajectoryReport
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        device = torch.device("cuda")
+        cfg = get_config("h2o-danube-1.8b").replace(n_layers=MESH_TWO_LAYERS)
+        model = Model(cfg)
+        params = model.init(seed=0)
+        batch = make_batch(cfg, world, seq, device)
+        site = TruncationPolicy.everywhere("e5m2")
+        ladder = [TruncationPolicy.everywhere(f"e8m{m}")
+                  for m in MESH_LADDER[:5]]
+        res = {}
+        with torch.no_grad():
+            pmesh = make_probe_mesh(device="cpu")
+            h0 = truncate_sweep(model.loss, site)(params, batch)
+            h1 = truncate_sweep(model.loss, site, mesh=pmesh)(params, batch)
+            t5 = h0.tables(ladder)
+            one, two = h0.batch(t5), h1.batch(t5)
+            res["sweep_k5_bit_equal"] = equal_bits(one, two)
+            res["sweep_k5_shape"] = list(two.shape)
+
+            # a per-example program (the logits: no reduction over the
+            # batch) on this rank's row
+            dmesh = make_profile_mesh(1, world, device="cpu")
+            mine = {k: v[rank:rank + 1] for k, v in batch.items()}
+            _, rep = memtrace(model.forward, site)(params, mine)
+            red = rep.allreduce("data", dmesh)
+            _, traj = profile_trajectory(model.forward, site,
+                                         n_steps=cfg.n_layers + 1)(
+                params, mine)
+            tred = traj.allreduce("data", dmesh)
+            torch.cuda.synchronize()
+
+        def host(r):
+            return [torch.as_tensor(x).cpu() for x in
+                    (r.flags, r.max_rel, r.op_counts)]
+
+        def thost(t):
+            return [torch.as_tensor(getattr(t, k)).cpu() for k in
+                    ("max_rel", "abs_sum", "mag_sum", "op_counts",
+                     "steps_seen")] + host(t.totals)
+
+        reps, trajs = [None] * world, [None] * world
+        dist.all_gather_object(reps, (rep.locations, host(rep)))
+        dist.all_gather_object(trajs, thost(traj))
+        merged = RaptorReport.merge_all([RaptorReport(loc, *h)
+                                         for loc, h in reps])
+        res["allreduce_equals_merge_all"] = all(
+            torch.equal(a, b) for a, b in zip(host(red), host(merged)))
+        res["flags"] = int(merged.flags.sum())
+        res["n_locations"] = len(merged.locations)
+        tm = TrajectoryReport.merge_all([
+            TrajectoryReport(
+                totals=RaptorReport(traj.totals.locations, *h[5:]),
+                scopes=traj.scopes, max_rel=h[0], abs_sum=h[1],
+                mag_sum=h[2], op_counts=h[3], steps_seen=h[4],
+                columns=traj.columns) for h in trajs])
+        got, want = thost(tred), thost(tm)
+        exact = [0, 3, 4, 5, 6, 7]          # maxima, counts, step counter
+        res["traj_allreduce_equals_merge_all"] = all(
+            torch.equal(got[i], want[i]) for i in exact) and all(
+            torch.allclose(got[i], want[i], rtol=1e-6, atol=0)
+            for i in (1, 2))
+        res["steps_seen"] = int(want[4])
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_path(device, layers, seq):
+    """Distribution on the card: a DeviceMesh of one rank (NCCL, ``cuda:0``)
+    over h2o-danube-1.8b at full width, depth ``layers`` (the search
+    path's), 1 x ``seq`` tokens. ``truncate_sweep(mesh=)`` of the MLP's
+    sites on a 6-rung and a 5-rung ladder held bit for bit to the unsharded
+    handle, its dynamic quantizer's launches = rows x site executions;
+    ``memtrace(mesh=,
+    in_shardings=batch_sharding)`` of a DTensor batch held bit for bit to
+    the plain report; ``autosearch(mesh=)`` held to the search path's
+    unsharded result of this run (or to its own when that phase did not
+    run). Beside it, started first and joined last, two ranks on the same
+    card (gloo) at 2 layers: a probe axis of two with K = 5 padded, bit for
+    bit the one-rank rows; ``RaptorReport`` / ``TrajectoryReport.allreduce``
+    of a per-example program equal to ``merge_all`` of the ranks'
+    reports."""
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import TruncationPolicy, memtrace, truncate_sweep
+    from repro_torch.distributed.sharding import batch_sharding, place
+    from repro_torch.launch.mesh import make_probe_mesh, make_profile_mesh
+    from repro_torch.models import Model
+    from repro_torch.search import autosearch, loss_degradation
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mesh_path_")
+    world = 2
+    two = mp.start_processes(mesh_rank, args=(
+        world, os.path.join(tmp, "store"), tmp, MESH_TWO_SEQ),
+        nprocs=world, join=False, start_method="spawn")
+    try:
+        cfg = get_config("h2o-danube-1.8b").replace(n_layers=layers)
+        model = Model(cfg)
+        params = model.init(seed=0)
+        batch = make_batch(cfg, 1, seq, device)
+        # the MLP's sites: a row costs about a plain forward
+        site = TruncationPolicy.scoped("layer/mlp", "e5m2")
+        ladder = [TruncationPolicy.everywhere(f"e8m{m}")
+                  for m in MESH_LADDER]
+        started = not dist.is_initialized()
+        pmesh = make_probe_mesh()                  # NCCL, one rank
+        dmesh = make_profile_mesh(1, 1)
+        backend = dist.get_backend()
+        torch.cuda.synchronize()
+
+        kernels.reset_launch_counts()              # the mesh path starts here
+        with torch.no_grad():
+            h0 = truncate_sweep(model.loss, site)(params, batch)
+            t6 = h0.tables(ladder)
+            want6 = h0.batch(t6)
+            h1 = truncate_sweep(model.loss, site, mesh=pmesh)(params, batch)
+            (got6, got5), sweep_launches = launches_of(
+                lambda: (h1.batch(t6), h1.batch(t6[:5])))
+        check(equal_bits(got6, want6) and equal_bits(got5, want6[:5])
+              and tuple(got5.shape) == (5,), "mesh sweep", got6, want6)
+        rows = 6 + 5
+        check(sweep_launches["quantize_em_dynamic"]
+              == rows * h1.site_executions, "mesh sweep launches",
+              sweep_launches, rows, h1.site_executions)
+
+        pol = TruncationPolicy.scoped("**/mlp", "e5m7")
+        sharded = place(batch["tokens"], batch_sharding(dmesh))
+        check(type(sharded).__name__ == "DTensor", type(sharded))
+        with torch.no_grad():
+            out0, rep0 = memtrace(model.loss, pol)(params, batch)
+            out1, rep1 = memtrace(
+                model.loss, pol, mesh=dmesh,
+                in_shardings=[None, batch_sharding(dmesh)])(
+                params, dict(batch, tokens=sharded))
+        check(equal_bits(out0, out1) and rep0.locations == rep1.locations
+              and all(equal_bits(getattr(rep0, k), getattr(rep1, k))
+                      for k in ("flags", "max_rel", "op_counts")),
+              "mesh memtrace")
+
+        base = SEARCH_RESULT.get("res")
+        own = base is None
+        if own:
+            base = autosearch(model.loss, (params, batch), loss_degradation,
+                              SEARCH_BUDGET, threshold=SEARCH_THRESHOLD)
+        t_search = time.perf_counter()
+        res = autosearch(model.loss, (params, batch), loss_degradation,
+                         SEARCH_BUDGET, threshold=SEARCH_THRESHOLD,
+                         mesh=pmesh)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t_search
+        counts = kernels.launch_counts()           # ... and ends here
+        check(assigns_of(res) == assigns_of(base)
+              and res.evals_used == base.evals_used
+              and res.n_dispatches == base.n_dispatches
+              and res.final_error == base.final_error
+              and res.n_devices == 1, "mesh autosearch", res.table(),
+              base.table())
+        one_rank_s = time.perf_counter() - t0
+    finally:
+        while not two.join():
+            pass
+        if "started" in locals() and started and dist.is_initialized():
+            dist.destroy_process_group()
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    for r in ranks:
+        check(r["sweep_k5_bit_equal"] and r["sweep_k5_shape"] == [5]
+              and r["allreduce_equals_merge_all"]
+              and r["traj_allreduce_equals_merge_all"]
+              and r["steps_seen"] == MESH_TWO_LAYERS, "two ranks", ranks)
+    emit("mesh_path", model=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, batch=[1, seq], world=1, backend=backend,
+         ladders=[6, 5], site_executions=h1.site_executions,
+         sweep_launches=sweep_launches["quantize_em_dynamic"],
+         memtrace_locations=len(rep1.locations),
+         memtrace_flags=int(rep1.flags.sum()),
+         search_against="own" if own else "search_path",
+         evals_used=res.evals_used, n_dispatches=res.n_dispatches,
+         n_devices=res.n_devices, search_s=search_s,
+         one_rank_s=one_rank_s, launches=counts,
+         two_ranks=dict(world=world, backend="gloo", device="cuda:0",
+                        n_layers=MESH_TWO_LAYERS, batch=[world, MESH_TWO_SEQ],
+                        ranks=ranks),
+         seconds=time.perf_counter() - t0)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
 
 
 def timed(fn, reps=3):
@@ -2007,6 +2246,7 @@ def search_site_policy(res):
         for p in res.assignments))
 
 
+SEARCH_RESULT = {}      # the search path's unsharded result, for mesh_path
 SEARCH_LAYERS = 4       # sites under scope("layer") are one set at any depth
 SEARCH_BUDGET = 128     # non-binding at this frontier
 SEARCH_THRESHOLD = 5e-3
@@ -2053,6 +2293,7 @@ def phase_search_path(device, layers, seq):
     counts = kernels.launch_counts()
 
     check_search_runs(res, loss.calls, "search_path")
+    SEARCH_RESULT["res"] = res
     rows = res.evals_used + 1
     first_row = loss.calls[2][0]
     frontier = [(a.scope.path, a.scope.fraction)
@@ -3785,7 +4026,7 @@ def main():
     ap.add_argument("--phases", default="kernels,fused_kernels,main_path,"
                                         "mem_path,traj_path,fused_path,"
                                         "small_ref,times,reconcile,"
-                                        "search_path,apps_path,"
+                                        "search_path,mesh_path,apps_path,"
                                         "artifact_path,models_path,"
                                         "serve_path,train_path,fp8_path,"
                                         "guard_path")
@@ -3833,6 +4074,9 @@ def main():
         counts.update(by_path["fused_path"])
     if "search_path" in phases:
         by_path["search_path"] = phase_search_path(
+            device, args.layers or SEARCH_LAYERS, args.seq)
+    if "mesh_path" in phases:
+        by_path["mesh_path"] = phase_mesh_path(
             device, args.layers or SEARCH_LAYERS, args.seq)
     if "apps_path" in phases:
         by_path["apps_path"] = phase_apps_path(device)
@@ -3914,6 +4158,7 @@ def main():
                     "traj_path": ("quantize_em_static",),
                     "fused_path": ("flash_attention", "wkv6"),
                     "search_path": ("quantize_em_dynamic",),
+                    "mesh_path": ("quantize_em_dynamic",),
                     "apps_path": ("quantize_em_static",
                                   "quantize_em_dynamic"),
                     "artifact_path": ("quantize_em_static",

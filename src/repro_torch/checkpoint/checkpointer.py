@@ -18,9 +18,9 @@ Guarantees (``tests/test_torch_checkpoint_ft.py``):
 
 numpy has no bfloat16 without ``ml_dtypes``, which the machine with the card
 does not have: a bf16 leaf is stored as its ``uint16`` bit pattern, its dtype
-recorded in the manifest (``dtypes``), and restored bit for bit. The
-reference package's elastic re-sharding (``shardings=``) comes with the
-distribution port; here it must be ``None``.
+recorded in the manifest (``dtypes``), and restored bit for bit.
+``restore(shardings=...)`` re-shards onto the current mesh (elastic): each
+leaf becomes a DTensor laid out per its ``NamedSharding``.
 """
 from __future__ import annotations
 
@@ -150,11 +150,11 @@ class Checkpointer:
                 shardings: Any = None):
         """Restore into the structure of ``template``: each leaf gets the
         template leaf's dtype and device (a Python scalar leaf comes back as
-        a 0-d tensor on the CPU). Returns ``(tree, manifest)``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) comes with the distribution port "
-                "(ROADMAP Queue A item 5)")
+        a 0-d tensor on the CPU). ``shardings`` (the template's structure or
+        a prefix of it, ``distributed.sharding.NamedSharding`` leaves, or
+        ``None`` for a leaf kept as it is) re-shards for the *current* mesh:
+        each leaf is laid out per its sharding on that DeviceMesh --
+        elastic. Returns ``(tree, manifest)``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -179,6 +179,10 @@ class Checkpointer:
                 return t.to(device=like.device, dtype=like.dtype)
             return t
 
-        return T.unflatten(template, [
+        tree = T.unflatten(template, [
             load(path, like) for path, like in T.leaves_with_path(template)
-        ]), manifest
+        ])
+        if shardings is not None:
+            from repro_torch.distributed.sharding import place_tree
+            tree = place_tree(tree, shardings)
+        return tree, manifest

@@ -38,8 +38,23 @@ Trajectories:
 ``profile_trajectory`` is ``memtrace`` with per-step ring buffers: one row
 per trip of the program's outermost loops (``repro_torch.profile``).
 
-``mesh`` / ``in_shardings`` are accepted for signature parity with the
-reference package and must be ``None``: distribution is not ported yet.
+Meshes (``launch.mesh``: a ``DeviceMesh``, one rank per device):
+
+    mesh = make_probe_mesh()                         # every rank
+    handle = raptor.truncate_sweep(model.loss, site_policy,
+                                   mesh=mesh)(params, batch)
+    losses = handle.batch(handle.tables(ladder))     # K / n rows a rank
+
+``truncate_sweep(mesh=, batch_axis=)`` divides the K candidate rows of
+``handle.batch`` between the ranks of the mesh's ``batch_axis`` and gathers
+them back in order: bit for bit the unsharded handle's rows. For every
+transform, ``in_shardings`` (jit's convention, ``distributed.sharding``)
+says how the inputs are laid out: DTensor inputs are gathered and every
+rank runs the global program, so outputs and reports are the single-device
+ones bit for bit (GSPMD's global semantics; the port does not partition a
+program's compute). Per-shard runs of a per-example program reduce with
+``RaptorReport.allreduce`` / ``TrajectoryReport.allreduce``. The caches
+key on the mesh and the shardings.
 """
 from __future__ import annotations
 
@@ -52,6 +67,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import counters, interpreter, memmode
+from repro_torch.distributed import sharding as _shd
 from repro_torch.core.formats import FPFormat, parse_format  # re-export
 from repro_torch.core.interpreter import scope, loop_body  # re-export
 from repro_torch.core.policy import (  # re-export
@@ -77,10 +93,26 @@ def _signature_key(in_tree, leaves, suffix: tuple) -> tuple:
     return (str(in_tree), tuple(_leaf_key(l) for l in leaves)) + suffix
 
 
-def _no_mesh(mesh, in_shardings):
-    if mesh is not None or in_shardings is not None:
-        raise NotImplementedError(
-            "mesh= / in_shardings= are not ported yet; pass None")
+def _mesh_key(mesh, in_shardings, *extra) -> tuple:
+    """Hashable cache-key component for a (mesh, shardings) pair: the
+    shardings' tree structure and leaves. Anything but a mesh raises."""
+    if mesh is None and in_shardings is None and not any(extra):
+        return (None,)
+    if mesh is not None:
+        _shd.mesh_shape(mesh)           # a TypeError for anything else
+    leaves, tree = pytree.tree_flatten(in_shardings,
+                                       is_leaf=_shd._is_sharding_leaf)
+    return (mesh, str(tree), tuple(leaves)) + extra
+
+
+def _global_inputs(mesh, in_shardings, args, kwargs):
+    """``(args, kwargs)`` as the global program reads them: ``in_shardings``
+    checked against the inputs (jit's prefix convention), DTensor leaves
+    gathered to their full tensors."""
+    if mesh is None and in_shardings is None:
+        return args, kwargs
+    _shd.flatten_arg_shardings(mesh, in_shardings, args, kwargs)
+    return _shd.gather_tree((tuple(args), kwargs))
 
 
 def _per_signature(wrapped, cache: bool, suffix: tuple, args, kwargs, make):
@@ -133,12 +165,16 @@ def truncate(fn: Callable, policy: TruncationPolicy, *, impl: str = "auto",
     a plain two-operand ``mm`` / ``bmm`` with a floating output) on fp8
     storage with f32 accumulation (``kernels.fp8_dot``: the port's fp8 dot
     kernel for CUDA tensors, its plain version for CPU tensors); every
-    other site keeps the emulated input quantize."""
-    _no_mesh(mesh, in_shardings)
-    suffix = (policy.cache_key(), impl, native_fp8)
+    other site keeps the emulated input quantize.
+
+    ``mesh`` / ``in_shardings``: the inputs' layout on a DeviceMesh (the
+    module docstring); every rank runs the global program."""
+    suffix = (policy.cache_key(), impl, native_fp8,
+              _mesh_key(mesh, in_shardings))
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
+        args, kwargs = _global_inputs(mesh, in_shardings, args, kwargs)
         plan = _per_signature(wrapped, cache, suffix, args, kwargs, dict)
         return interpreter.run_quantized(fn, args, kwargs, policy, impl, plan,
                                          native_fp8=native_fp8)
@@ -170,12 +206,21 @@ class SweepHandle:
       candidates one after the other (outputs gain a leading K axis).
     * ``handle.table(policy)`` — lower a :class:`TruncationPolicy` to its
       table (unmatched sites get the identity row).
+
+    Under a sharded sweep (``truncate_sweep(..., mesh=...)``) ``batch``
+    divides the K rows between the ranks of the mesh's probe axis; a K the
+    axis does not divide is padded with identity rows, and the rows are
+    gathered back in order and the padding sliced off, so the result is
+    the unsharded handle's bit for bit.
     """
 
-    def __init__(self, fn, index, args, kwargs, impl, device):
+    def __init__(self, fn, index, args, kwargs, impl, device, mesh=None,
+                 batch_axis: str = "probe"):
         self._fn, self._index = fn, index
         self._args, self._kwargs = args, kwargs
         self._impl, self._device = impl, device
+        self._mesh, self._batch_axis = mesh, batch_axis
+        self._shard_multiple = _shd.probe_axis_size(mesh, batch_axis)
 
     @property
     def sites(self):
@@ -224,6 +269,22 @@ class SweepHandle:
 
     def batch(self, tables):
         tables = self.device_table(tables)
+        n = self._shard_multiple
+        if n == 1:
+            return self._rows(tables)
+        k = tables.shape[0]
+        pad = -k % n
+        if pad:
+            identity = self.device_table(self.identity_table())
+            tables = torch.cat([tables, identity.expand(pad, -1, -1)])
+        per = tables.shape[0] // n
+        r = self._mesh.get_local_rank(self._batch_axis)
+        group = _shd.axis_group(self._mesh, self._batch_axis)
+        rows = pytree.tree_map(lambda t: _shd.all_gather_rows(t, group),
+                               self._rows(tables[r * per:(r + 1) * per]))
+        return _shd.drop_padded_rows(rows, k)
+
+    def _rows(self, tables):
         outs = [self(tables[k]) for k in range(tables.shape[0])]
         return pytree.tree_map(lambda *xs: torch.stack(
             [torch.as_tensor(x) for x in xs]), *outs)
@@ -250,11 +311,19 @@ def truncate_sweep(fn: Callable, site_policy: TruncationPolicy, *,
     Gradients as in :func:`truncate`: the sites of a backward pass run
     inside ``fn`` are enumerated under their forward ops' scopes (in a
     frame ``<forward path>/#grad<position>``) and rounded by the table;
-    ``.backward()`` outside the handle is straight-through."""
-    _no_mesh(mesh, in_shardings)
-    suffix = (site_policy.cache_key(), impl, batch_axis)
+    ``.backward()`` outside the handle is straight-through.
+
+    ``mesh`` makes the sweep candidate-parallel: ``handle.batch`` divides
+    the leading K (candidate) axis between the ``mesh``'s ``batch_axis``
+    ranks, the table rows replicated, and gathers the rows back, bit for
+    bit the unsharded handle's (K is identity-padded to the shard multiple
+    and sliced back). ``in_shardings``: the inputs' layout, gathered to the
+    global program's inputs as for :func:`truncate`."""
+    suffix = (site_policy.cache_key(), impl,
+              _mesh_key(mesh, in_shardings, batch_axis))
 
     def wrapped(*args, **kwargs) -> SweepHandle:
+        args, kwargs = _global_inputs(mesh, in_shardings, args, kwargs)
         leaves, in_tree = pytree.tree_flatten((args, kwargs))
         key = _signature_key(in_tree, leaves, suffix)
         index = wrapped._cache.get(key) if cache else None
@@ -264,7 +333,7 @@ def truncate_sweep(fn: Callable, site_policy: TruncationPolicy, *,
             if cache:
                 wrapped._cache[key] = index
         return SweepHandle(fn, index, args, kwargs, impl,
-                           _first_device(leaves, device))
+                           _first_device(leaves, device), mesh, batch_axis)
 
     return _attach_cache(wrapped)
 
@@ -293,17 +362,24 @@ def memtrace(fn: Callable, policy: TruncationPolicy, _threshold=None,
     and the elements seen, on the program's device.
 
     Per input signature the policy is matched once and the location table
-    kept (``wrapper.n_traces``). ``mesh`` / ``in_shardings`` must be
-    ``None`` (distribution is not ported yet). A backward pass inside
-    ``fn`` raises ``NotImplementedError`` (not ported yet, ROADMAP Queue
-    A); so does one inside ``profile_trajectory`` and
-    ``profile_counts``."""
+    kept (``wrapper.n_traces``). A backward pass inside ``fn`` raises
+    ``NotImplementedError`` (not ported yet, ROADMAP Queue A); so does one
+    inside ``profile_trajectory`` and ``profile_counts``.
+
+    ``mesh`` / ``in_shardings``: the inputs' layout on a DeviceMesh. The
+    report stays EXACT: sharded (DTensor) inputs are gathered and every
+    rank runs the global program, so flags, op counts and ``max_rel`` are
+    the single-device report's bit for bit, a cross-shard mean included.
+    Reports of per-shard runs of a per-example program reduce with
+    ``RaptorReport.allreduce(axis_name)`` (collectives) or
+    ``RaptorReport.merge_all`` (host-side)."""
     threshold = _legacy_threshold_shim("memtrace", _threshold, threshold)
-    _no_mesh(mesh, in_shardings)
-    suffix = ("memtrace", policy.cache_key(), threshold, impl)
+    suffix = ("memtrace", policy.cache_key(), threshold, impl,
+              _mesh_key(mesh, in_shardings))
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
+        args, kwargs = _global_inputs(mesh, in_shardings, args, kwargs)
         table = _per_signature(wrapped, cache, suffix, args, kwargs,
                                memmode.LocationTable)
         return memmode.run_shadowed(fn, args, kwargs, policy, threshold,
@@ -340,18 +416,19 @@ def profile_trajectory(fn: Callable, policy: TruncationPolicy,
 
     Cached per input signature exactly like ``memtrace``
     (``wrapper.n_traces``); the run makes no host synchronisation.
-    ``mesh`` / ``in_shardings`` must be ``None``."""
+    ``mesh`` / ``in_shardings`` as for :func:`memtrace`: the global program
+    on every rank, the trajectory the single-device one."""
     threshold = _legacy_threshold_shim("profile_trajectory", _threshold,
                                        threshold)
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    _no_mesh(mesh, in_shardings)
     sites = tuple(sites) if sites is not None else None
     suffix = ("trajectory", policy.cache_key(), threshold, impl, n_steps,
-              sites)
+              sites, _mesh_key(mesh, in_shardings))
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
+        args, kwargs = _global_inputs(mesh, in_shardings, args, kwargs)
         table = _per_signature(wrapped, cache, suffix, args, kwargs,
                                memmode.LocationTable)
         return memmode.run_shadowed(fn, args, kwargs, policy, threshold,
@@ -372,11 +449,13 @@ def profile_counts(fn: Callable, policy: TruncationPolicy, *,
     The count is of what ran, so a program whose work depends on values
     the signature does not hold (a loop bounded by a Python int, a branch
     on data) is counted as its first call ran; ``cache=False`` counts every
-    call. ``mesh`` / ``in_shardings`` must be ``None``."""
-    _no_mesh(mesh, in_shardings)
-    suffix = ("counts", policy.cache_key())
+    call. ``mesh`` / ``in_shardings`` are accepted as the reference's are
+    and only key the cache: the counts are the global program's, which
+    every rank runs."""
+    suffix = ("counts", policy.cache_key(), _mesh_key(mesh, in_shardings))
 
     def wrapped(*args, **kwargs):
+        args, kwargs = _global_inputs(mesh, in_shardings, args, kwargs)
         return _per_signature(
             wrapped, cache, suffix, args, kwargs,
             lambda: counters.count_ops(fn, args, kwargs, policy))

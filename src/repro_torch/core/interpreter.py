@@ -358,6 +358,7 @@ def loop_body(tag: str, *, once: bool = False):
     return _push("#" + tag, False, not once)
 
 
+@contextlib.contextmanager
 def shared_body(name: str, *inputs: torch.Tensor):
     """Mark a call of a function the reference wraps in ``jax.jit``
     (``jax.nn.silu``, ``jax.nn.softplus``, ``jnp.var``'s ``_var``). JAX
@@ -366,14 +367,29 @@ def shared_body(name: str, *inputs: torch.Tensor):
     call with ``inputs`` of the same shapes and dtypes under the same visible
     scopes shares one set of sites, whatever hidden frames lie between
     (``loop_body`` tags, one-trip frames). The visible stack does not change
-    and the frame is never a loop trip."""
+    and the frame is never a loop trip.
+
+    Yields ``inputs`` as the body must read them: the reference transposes
+    a jitted body as a unit, so the cotangents of an input used more than
+    once inside are summed there (``add_any`` sites of the body) and reach
+    the caller as one term. Each input that autograd records enters through
+    an identity node (``loop_const``'s), in whose input buffer those sums
+    happen, each in the frame of the body's op that delivers its term; the
+    node's own delivery is the caller's sum, under the body's scopes."""
     sig = ",".join(f"{tuple(t.shape)}{t.dtype}" for t in inputs)
     top = _frames()[-1]
     # a ``remat`` recompute traces the body again, as its JVP (residuals
     # and all): in the reference that is another jaxpr with sites of its own
     tag = ("#remat/" if _tls.recompute else "") + f"#{name}({sig})"
-    return _enter(_Frame(join_stack(top.stack, tag), top.stack, False,
-                         top.depth))
+    # the inputs enter in a frame of the caller's, apart from its own
+    # positions, so the body's sites do not depend on which inputs autograd
+    # records, and each call's delivery is a site of its own
+    with _enter(_Frame(join_stack(top.path, "#in" + tag), top.stack, False,
+                       top.depth)):
+        inputs = tuple(loop_const(t) for t in inputs)
+    with _enter(_Frame(join_stack(top.stack, tag), top.stack, False,
+                       top.depth)):
+        yield inputs
 
 
 def current_stack() -> str:

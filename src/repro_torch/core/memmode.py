@@ -113,6 +113,18 @@ def _as(x, dtype, device):
     return torch.as_tensor(x, device=device).to(dtype)
 
 
+def _axis_group(mesh, axis_name: str):
+    """The process group of ``axis_name`` on ``mesh`` (default: the mesh
+    of the innermost ``sharding.use_mesh``)."""
+    from repro_torch.distributed import sharding
+    mesh = mesh if mesh is not None else sharding.current_mesh()
+    if mesh is None:
+        raise ValueError(
+            "allreduce needs a DeviceMesh: pass mesh= or call it inside "
+            "distributed.sharding.use_mesh(mesh)")
+    return sharding.axis_group(mesh, axis_name)
+
+
 @dataclasses.dataclass
 class RaptorReport:
     """Per-location numerical deviation statistics: ``flags`` (int64, the
@@ -142,12 +154,25 @@ class RaptorReport:
     # are sums of per-element predicates, so the global report is the
     # elementwise SUM of per-shard reports; ``max_rel`` is a MAX.
 
-    def allreduce(self, axis_name: str) -> "RaptorReport":
-        """In-SPMD reduction over a mesh axis: needs the distribution layer,
-        which is not ported yet."""
-        raise NotImplementedError(
-            "RaptorReport.allreduce needs the distribution layer, which is "
-            "not ported yet; reduce host-side with merge / merge_all")
+    def allreduce(self, axis_name: str, mesh=None) -> "RaptorReport":
+        """Reduction of per-rank reports over the mesh axis ``axis_name``
+        (``mesh``, or the mesh of the innermost ``sharding.use_mesh``):
+        ``all_reduce`` SUM of flags and op counts, MAX of ``max_rel``. Every
+        rank of the axis must call it.
+
+        Each rank computes its own shard's semantics, so the reduced report
+        equals the global one exactly when each shard's run is a slice of
+        the global program (per-example models, contractions along
+        unsharded dims). Programs with cross-batch reductions (a global
+        mean, a loss) use ``memtrace(mesh=..., in_shardings=...)``, which
+        keeps the program global."""
+        group = _axis_group(mesh, axis_name)
+        from repro_torch.distributed.sharding import all_reduce
+        return RaptorReport(
+            self.locations,
+            all_reduce(_as(self.flags, torch.int64, None), group, "sum"),
+            all_reduce(_as(self.max_rel, torch.float32, None), group, "max"),
+            all_reduce(_as(self.op_counts, torch.int64, None), group, "sum"))
 
     def merge(self, other: "RaptorReport") -> "RaptorReport":
         """Host-side pairwise reduction (e.g. across processes/ranks).

@@ -1,5 +1,5 @@
-"""Checkpoint-restart supervision and straggler detection
-(``repro.distributed.fault_tolerance``, its single-process part).
+"""Checkpoint-restart supervision, straggler detection and elastic
+re-meshing (``repro.distributed.fault_tolerance``).
 
   * **Failure handling** -- ``run_supervised`` wraps the step loop, catches
     the configured exception classes, restores the latest durable
@@ -9,8 +9,10 @@
     ``straggle_factor`` x that median (``StragglerMonitor``), so a
     scheduler can act at the next restart boundary.
 
-Elastic re-meshing (``remesh``, ``best_mesh_shape``) waits for the
-distribution port (ROADMAP Queue A item 5).
+  * **Elastic scaling** -- ``remesh`` builds a new (data, model) mesh over
+    the ranks of the current process group (possibly fewer than before);
+    ``Checkpointer.restore(shardings=...)`` re-shards a checkpoint onto it
+    and the data pipeline's step cursor keeps batches aligned.
 """
 from __future__ import annotations
 
@@ -19,6 +21,23 @@ import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+
+
+def best_mesh_shape(n_devices: int, model_parallel: int) -> Tuple[int, int]:
+    """Largest (data, model) grid for ``n_devices``."""
+    model = model_parallel
+    while model > 1 and n_devices % model:
+        model //= 2
+    return n_devices // model, model
+
+
+def remesh(model_parallel: int = 16, axis_names=("data", "model"),
+           device=None):
+    """A (data, model) DeviceMesh over every rank of the process group."""
+    from repro_torch.launch.mesh import device_mesh, ensure_process_group
+    data, model = best_mesh_shape(ensure_process_group(device),
+                                  model_parallel)
+    return device_mesh((data, model), axis_names, device, "remesh")
 
 
 @dataclasses.dataclass

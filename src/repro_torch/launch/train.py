@@ -1,10 +1,11 @@
-"""Training entry point on one card (``repro.launch.train``).
+"""Training entry point (``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
         [--production] [--steps 1000] [--seq 128] [--global-batch 8] \\
         [--policy "scope:**/mlp=e5m7" | --policy-artifact NAME[@vN] \\
          [--swap-artifact STEP:REF ...] [--registry DIR]] \\
-        [--ckpt DIR] [--save-every 100] [--device cpu]
+        [--ckpt DIR] [--save-every 100] [--device cpu] \\
+        [--coordinator HOST:PORT --num-hosts N --host-id I] [--multi-pod]
 
 ``--smoke`` (the default) trains the architecture's smoke configuration,
 ``--production`` the full one (with its gradient accumulation); random
@@ -29,8 +30,16 @@ resuming under the escalated table. ``--inject-fault SITE:STEP[:KIND]``
 default, or ``bitflip``). The log of interventions is saved beside the
 checkpoints and attached to the artifact.
 
-Not ported yet: ``--multi-pod`` / ``--coordinator`` / ``--num-hosts`` > 1
-(ROADMAP Queue A item 5); each raises.
+Several ranks, one per device: ``--coordinator HOST:PORT --num-hosts N
+--host-id I`` starts the process group (``init_method="tcp://HOST:PORT"``);
+under ``torchrun`` (which sets ``RANK``, ``WORLD_SIZE`` and
+``MASTER_ADDR``) ``--num-hosts N`` alone joins its group. The ranks form the
+host mesh, every rank trains on its slice of the global batch, and loss and
+gradients are averaged over the data axis before the update (the port's
+counterpart of GSPMD's data-parallel reduction; parameters stay replicated,
+so ``--production``'s FSDP x TP placement is the reference's alone). Rank 0
+writes the checkpoints. ``--multi-pod`` builds the 512-device production
+mesh and raises, naming the count, on fewer ranks.
 """
 from __future__ import annotations
 
@@ -40,6 +49,8 @@ import tempfile
 import time
 from typing import Optional
 
+import torch.distributed as dist
+
 from repro_torch.artifacts import ArtifactRef, Registry, default_root
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config
@@ -48,17 +59,22 @@ from repro_torch.data.pipeline import DataConfig, Pipeline, Prefetcher, to_devic
 from repro_torch.distributed import (
     StragglerMonitor, SupervisorConfig, run_supervised,
 )
+from repro_torch.distributed import sharding as shd
 from repro_torch.guardrails import (
     EscalationLadder, FaultPlan, FaultSpec, GuardrailLog,
     NumericalFaultError, StepMonitor,
 )
 from repro_torch.guardrails.controller import _DeviceTable
+from repro_torch.launch.mesh import (
+    data_group, make_host_mesh, make_production_mesh,
+)
 from repro_torch.models import Model
 from repro_torch.models.common import resolve_device
 from repro_torch.optim.adamw import AdamWConfig, warmup_cosine
 from repro_torch.train import (
     TrainConfig, init_opt_state, make_hotswap_train_step, make_train_step,
 )
+from repro_torch.train.trainer import _split_micro_fn
 
 
 def parse_args(argv=None):
@@ -98,7 +114,8 @@ def parse_args(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-hosts", type=int, default=1)
-    ap.add_argument("--host-id", type=int, default=0)
+    ap.add_argument("--host-id", type=int,
+                    default=int(os.environ.get("RANK", 0)))
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' "
                          "for tests)")
@@ -115,12 +132,26 @@ def _parse_fault(spec: str) -> FaultSpec:
     return FaultSpec(site=int(parts[0]), step=int(parts[1]), kind=kind)
 
 
-def _not_ported(args):
-    if args.multi_pod or args.coordinator or args.num_hosts > 1:
-        raise NotImplementedError(
-            "--multi-pod / --coordinator / --num-hosts > 1 need the "
-            "distribution port (ROADMAP Queue A item 5); this entry point "
-            "trains on one card")
+def _distribution(args, device):
+    """``(mesh, data group)`` of the run: ``(None, None)`` on one rank.
+    Starts the process group a ``--coordinator`` or ``--num-hosts`` asks
+    for."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if args.num_hosts < 1:
+        raise ValueError(f"--num-hosts {args.num_hosts}: want at least 1")
+    if args.coordinator:
+        dist.init_process_group(
+            backend, init_method=f"tcp://{args.coordinator}",
+            world_size=args.num_hosts, rank=args.host_id)
+    elif args.num_hosts > 1 and not dist.is_initialized():
+        dist.init_process_group(backend)        # torchrun's environment
+    if args.multi_pod:
+        mesh = make_production_mesh(multi_pod=True, device=device)
+    elif dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = make_host_mesh(model_parallel=1, device=device)
+    else:
+        return None, None
+    return mesh, data_group(mesh)
 
 
 def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
@@ -133,8 +164,18 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
     ``n_layers`` cuts the configuration's depth (a caller's smoke run of a
     full-width model); the command line has no such flag."""
     args = parse_args(argv)
-    _not_ported(args)
     device = resolve_device(args.device)
+    started = not dist.is_initialized()
+    try:
+        return _main(args, device, n_layers)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, device, n_layers):
+    mesh, dgroup = _distribution(args, device)
+    rank = dist.get_rank() if mesh is not None else 0
     cfg = get_config(args.arch, "smoke" if args.smoke else "full")
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
@@ -184,7 +225,19 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
         d_model=cfg.d_model,
         input_mode=("encdec" if cfg.family == "encdec" else cfg.input_mode),
         mrope=cfg.rope_type == "mrope"))
-    ck = Checkpointer(args.ckpt, keep_k=3)
+    ck = Checkpointer(args.ckpt, keep_k=3, async_save=mesh is None)
+    if dgroup is not None:
+        n_data = dist.get_world_size(dgroup)
+        if gbatch % n_data:
+            raise ValueError(f"global batch {gbatch} does not divide over "
+                             f"{n_data} data ranks")
+        mine = (_split_micro_fn(n_data), dist.get_rank(dgroup))
+        print(f"mesh={shd.mesh_shape(mesh)} rank={rank}: "
+              f"{gbatch // n_data} rows of each batch", flush=True)
+
+    def next_batch():
+        batch = to_device(pf.next(), device)
+        return batch if dgroup is None else mine[0](batch, mine[1])
 
     params = model.init(seed=0, device=device)
     state = {"params": params,
@@ -193,21 +246,21 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
     peeked = []   # the first prefetched batch, the enumeration's example
 
     if artifact is not None:
-        peeked.append(to_device(pf.next(), device))
+        peeked.append(next_batch())
         # sites = the union of every artifact this run may deploy, so a swap
         # is always a subset of the enumerated table rows
         site_rules = tuple(artifact.policy.rules) + tuple(
             r for art, _ in swap_schedule.values() for r in art.policy.rules)
         step_fn, sites = make_hotswap_train_step(
             model, tc, TruncationPolicy(rules=site_rules), state["params"],
-            peeked[0])
+            peeked[0], data_group=dgroup)
         # the live table is numpy (faults and the ladder rewrite it); the
         # step reads its device copy, made again only when it changes
         live_table = _DeviceTable(step_fn.device_table)
         active = {"ref": artifact_ref,
                   "table": sites.table_for(artifact.policy)}
     else:
-        step_fn = make_train_step(model, tc)
+        step_fn = make_train_step(model, tc, data_group=dgroup)
         sites = active = None
 
     # ---- runtime numerical guardrails -------------------------------------
@@ -262,9 +315,12 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
         return latest
 
     def save_fn(step: int):
-        ck.save(step, (state["params"], state["opt"]),
-                extra={"data": data.state_dict()},
-                policy_artifact=active["ref"] if active else None)
+        if rank == 0:
+            ck.save(step, (state["params"], state["opt"]),
+                    extra={"data": data.state_dict()},
+                    policy_artifact=active["ref"] if active else None)
+        if mesh is not None:
+            dist.barrier()
 
     losses = {}
     t0 = time.time()
@@ -285,7 +341,7 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
                 print(f"[guardrail] step {step}: injected {f.kind} "
                       f"fault at site {f.site}", flush=True)
             active["table"] = table
-        batch = peeked.pop() if peeked else to_device(pf.next(), device)
+        batch = peeked.pop() if peeked else next_batch()
         extra = (live_table(active["table"]),) if active is not None else ()
         state["params"], state["opt"], m = step_fn(
             state["params"], state["opt"], batch, step, *extra)

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.core.interpreter import (
     loop_body, loop_const, remat, scope, zero_cotangents,
 )
@@ -240,11 +241,16 @@ def gqa_forward(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
     B, S, _ = x.shape
     with scope("qkv"):
         q, k, v = _project_qkv(p, x, cfg, positions)
+        q = constrain(q, "batch", "heads", "seq", None)
+        k = constrain(k, "batch", "kv_heads", "seq", None)
+        v = constrain(v, "batch", "kv_heads", "seq", None)
     with scope("mix"):
         o = flash_attention(q, k, v, causal=causal, window=window)
+        o = constrain(o, "batch", "heads", "seq", None)
     with scope("proj"):
         o = o.permute(0, 2, 1, 3).reshape(B, S, -1)
         out = o @ p["wo"].to(x.dtype)
+        out = constrain(out, "batch", "seq", "embed")
     return out, (k, v)
 
 
@@ -346,6 +352,9 @@ def mla_forward(p, x, cfg: ArchConfig, *, positions):
         k = torch.cat([k_nope, k_rope[:, None].expand(
             B, H, S, m.rope_head_dim)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
+        q = constrain(q, "batch", "heads", "seq", None)
+        k = constrain(k, "batch", "heads", "seq", None)
+        v = constrain(v, "batch", "heads", "seq", None)
     with scope("mla_mix"):
         scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
         o = flash_attention(q, k, v, causal=True, scale=scale)

@@ -73,6 +73,18 @@ def init_tree(defs, generator: torch.Generator, dtype, device):
     return map_defs(lambda d: d.initializer(generator, dtype, device), defs)
 
 
+def abstract_tree(defs, dtype):
+    """Tensors on the ``meta`` device (shape and dtype, no storage) in
+    place of every ParamDef: the dry-run's parameters."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=dtype,
+                                          device="meta"), defs)
+
+
+def axes_tree(defs):
+    """The logical axis names of every ParamDef."""
+    return map_defs(lambda d: d.axes, defs)
+
+
 def count_params(defs) -> int:
     total = 0
 
@@ -124,13 +136,13 @@ def _var_last(x):
     reference's jitted ``_var`` computes it: the mean, the squared
     deviations, ``n - ddof`` in the float type, and the NaN of its
     ``where(n - ddof > 0, ...)``."""
-    with shared_body("_var", x):
+    with shared_body("_var", x) as (x,):
         sq = torch.square(x - _mean_last(x))
         ddof = torch.zeros((), dtype=torch.int32, device=x.device)
         denom = float(x.shape[-1]) - ddof.to(x.dtype)
         var = sq.sum(dim=-1, keepdim=True) / denom
         positive = denom > 0
-        with shared_body("_where", positive, var):
+        with shared_body("_where", positive, var) as (positive, var):
             nan = torch.full((), math.nan, dtype=x.dtype, device=x.device)
             return torch.where(positive, var, nan.to(x.dtype, copy=True))
 
@@ -140,7 +152,7 @@ def _var_last(x):
 # --------------------------------------------------------------------------
 
 def silu(x):
-    with shared_body("silu", x):
+    with shared_body("silu", x) as (x,):
         return x * torch.sigmoid(x)
 
 
@@ -161,7 +173,7 @@ def square(x):
 def softplus(x):
     """The reference's ``logaddexp(x, 0)``, step for step: max, sub, add,
     abs, neg, exp, log1p, add, select."""
-    with shared_body("softplus", x):
+    with shared_body("softplus", x) as (x,):
         amax = torch.clamp_min(x, 0.0)
         delta = x - 0.0
         is_nan = delta != delta

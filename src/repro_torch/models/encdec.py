@@ -24,6 +24,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.interpreter import loop_body, loop_const, scope
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention
 from repro_torch.models.common import ParamDef, resolve_device, torch_dtype
 from repro_torch.models.transformer import (
@@ -68,7 +69,8 @@ def model_param_defs(cfg: ArchConfig) -> dict:
 
 
 def encode(params, src_embeds, cfg: ArchConfig):
-    x = src_embeds.to(torch_dtype(cfg.dtype))
+    x = constrain(src_embeds.to(torch_dtype(cfg.dtype)),
+                  "batch", "seq", "embed")
     B, T = x.shape[:2]
     positions = _positions({}, cfg, T, B, x.device)
 
@@ -145,6 +147,7 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
     memory = encode(params, batch["src_embeds"], cfg)
     with scope("embed"):
         x = params["embed"].to(torch_dtype(cfg.dtype))[batch["tokens"]]
+    x = constrain(x, "batch", "seq", "embed")
     B, S = x.shape[:2]
     positions = _positions({}, cfg, S, B, x.device)
 
@@ -163,7 +166,8 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
     with scope("final_norm"):
         x = apply_norm(params["final_norm"], x, cfg)
     with scope("logits"):
-        return x.to(torch.float32) @ params["lm_head"].to(torch.float32)
+        logits = x.to(torch.float32) @ params["lm_head"].to(torch.float32)
+        return constrain(logits, "batch", "seq", "vocab")
 
 
 def loss_fn(params, batch, cfg: ArchConfig):
@@ -196,6 +200,7 @@ def decode_step(params, cache, tokens, cfg: ArchConfig):
     pos = cache["pos"]
     with scope("embed"):
         x = params["embed"].to(torch_dtype(cfg.dtype))[tokens][:, None]
+    x = constrain(x, "batch", "seq", "embed")
     outs = []
     for i in range(cfg.n_layers):
         with scope("dec_layer", loop=True):
@@ -210,4 +215,4 @@ def decode_step(params, cache, tokens, cfg: ArchConfig):
     new_cache = dict(cache, pos=pos + 1,
                      layers=pytree.tree_map(lambda *ts: torch.stack(ts),
                                             *outs))
-    return logits, new_cache
+    return constrain(logits, "batch", "vocab"), new_cache

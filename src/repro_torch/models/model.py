@@ -9,7 +9,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, transformer
 from repro_torch.models.common import (
-    count_params, init_tree, resolve_device, torch_dtype,
+    abstract_tree, axes_tree, count_params, init_tree, resolve_device,
+    torch_dtype,
 )
 
 
@@ -36,6 +37,15 @@ class Model:
         gen.manual_seed(seed)
         return init_tree(self.param_defs(), gen, torch_dtype(self.cfg.dtype),
                          device)
+
+    def abstract_params(self):
+        """The parameters as ``meta`` tensors in ``cfg.dtype``: shapes and
+        dtypes with no storage."""
+        return abstract_tree(self.param_defs(), torch_dtype(self.cfg.dtype))
+
+    def param_axes(self):
+        """Each parameter's logical axis names (``distributed.sharding``)."""
+        return axes_tree(self.param_defs())
 
     def n_params(self) -> int:
         return count_params(self.param_defs())

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.core.interpreter import scope
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import common
 from repro_torch.models.common import ParamDef, ACTIVATIONS
 
@@ -147,11 +148,14 @@ def moe_forward(p, x, cfg: ArchConfig, capacity: Optional[int] = None):
         x_pad = torch.cat([xf, torch.zeros((1, d), dtype=xf.dtype,
                                            device=xf.device)], dim=0)
         x_grp = x_pad[slot_tok].reshape(E, capacity, d)
+        x_grp = constrain(x_grp, "experts", None, "embed")
 
     with scope("experts"):
         h = common.einsum("ecd,edf->ecf", x_grp, p["wi"].to(x.dtype))
+        h = constrain(h, "experts", None, "mlp")
         h = ACTIVATIONS["swiglu"](h)
         y_grp = common.einsum("ecf,efd->ecd", h, p["wo"].to(x.dtype))
+        y_grp = constrain(y_grp, "experts", None, "embed")
 
     with scope("combine"):
         y_flat = y_grp.reshape(E * capacity, d)

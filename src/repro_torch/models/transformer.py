@@ -61,6 +61,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.interpreter import loop_body, remat, scope
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention, moe as moe_mod, ssm
 from repro_torch.models.common import (
     ParamDef, ACTIVATIONS, rmsnorm, layernorm, map_defs, resolve_device,
@@ -85,8 +86,10 @@ def mlp_param_defs(cfg: ArchConfig, d_ff: int) -> dict:
 def mlp_forward(p, x, cfg: ArchConfig):
     with scope("mlp"):
         h = x @ p["wi"].to(x.dtype)
+        h = constrain(h, "batch", "seq", "mlp")
         h = ACTIVATIONS[cfg.act](h)
-        return h @ p["wo"].to(x.dtype)
+        out = h @ p["wo"].to(x.dtype)
+        return constrain(out, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +319,11 @@ def _embed_inputs(params, batch, cfg: ArchConfig):
     """tokens -> embeddings, or pass through stub-frontend embeddings."""
     dtype = torch_dtype(cfg.dtype)
     if cfg.input_mode == "embeds":
-        return batch["embeds"].to(dtype)
-    with scope("embed"):
-        return params["embed"].to(dtype)[batch["tokens"]]
+        x = batch["embeds"].to(dtype)
+    else:
+        with scope("embed"):
+            x = params["embed"].to(dtype)[batch["tokens"]]
+    return constrain(x, "batch", "seq", "embed")
 
 
 def _positions(batch, cfg: ArchConfig, S: int, B: int, device):
@@ -380,6 +385,7 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
         logits = x.to(torch.float32) @ head.to(torch.float32)
+        logits = constrain(logits, "batch", "seq", "vocab")
     return logits
 
 
@@ -497,6 +503,7 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, embeds=None):
     else:
         with scope("embed"):
             x = params["embed"].to(dtype)[tokens][:, None]
+    x = constrain(x, "batch", "seq", "embed")
 
     new_pos = pos + 1
     new_lead = []
@@ -564,4 +571,5 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, embeds=None):
     with scope("logits"):
         head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
         logits = x[:, 0].to(torch.float32) @ head.to(torch.float32)
+        logits = constrain(logits, "batch", "vocab")
     return logits, new_cache

@@ -26,8 +26,8 @@ truncated source location. On top of the raw buffers it offers
 The buffers are tensors on the program's device; a method that decides
 something reads them to the host once, as numpy, and does its arithmetic
 there in float64, as the reference package's methods do. Reductions mirror
-``RaptorReport``: ``merge`` / ``merge_all`` host-side; ``allreduce`` needs
-the distribution layer, which is not ported yet. Exactness under data
+``RaptorReport``: ``merge`` / ``merge_all`` host-side, ``allreduce`` over a
+mesh axis with collectives. Exactness under data
 parallelism: per-step max deviations, op counts and the step counter reduce
 bit for bit; the float magnitude sums reproduce up to summation order.
 """
@@ -167,12 +167,29 @@ class TrajectoryReport:
         return max(1, min(seen + 1, self.n_steps))
 
     # ---- reductions (same exactness contract as RaptorReport) -------------
-    def allreduce(self, axis_name: str) -> "TrajectoryReport":
-        """In-SPMD reduction over a mesh axis: needs the distribution layer,
-        which is not ported yet."""
-        raise NotImplementedError(
-            "TrajectoryReport.allreduce needs the distribution layer, which "
-            "is not ported yet; reduce host-side with merge / merge_all")
+    def allreduce(self, axis_name: str, mesh=None) -> "TrajectoryReport":
+        """Reduction of per-rank trajectories over the mesh axis
+        ``axis_name`` (``mesh``, or the innermost ``sharding.use_mesh``'s):
+        SUM of the sums and op counts, MAX of the maxima and the step
+        counter. Exact for per-example programs (see ``RaptorReport``)."""
+        from repro_torch.core.memmode import _axis_group
+        from repro_torch.distributed.sharding import all_reduce
+        group = _axis_group(mesh, axis_name)
+        f32, i64 = torch.float32, torch.int64
+
+        def red(name, dtype, op):
+            return all_reduce(_as(getattr(self, name), dtype, None), group,
+                              op)
+
+        return TrajectoryReport(
+            totals=self.totals.allreduce(axis_name, mesh),
+            scopes=self.scopes,
+            max_rel=red("max_rel", f32, "max"),
+            abs_sum=red("abs_sum", f32, "sum"),
+            mag_sum=red("mag_sum", f32, "sum"),
+            op_counts=red("op_counts", i64, "sum"),
+            steps_seen=red("steps_seen", torch.int32, "max"),
+            columns=self.columns)
 
     def merge(self, other: "TrajectoryReport") -> "TrajectoryReport":
         """Host-side pairwise reduction (across processes/ranks). Accepts

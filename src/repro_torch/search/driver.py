@@ -53,6 +53,7 @@ from repro_torch.core import api
 from repro_torch.core.memmode import upload
 from repro_torch.core.formats import FPFormat
 from repro_torch.core.policy import TruncationPolicy, TruncationRule
+from repro_torch.distributed.sharding import pad_to_shards, probe_axis_size
 from repro_torch.search import metrics as _metrics
 from repro_torch.search.scopes import ScopeInfo, discover_scopes
 
@@ -137,7 +138,7 @@ class SearchResult:
                                       # any single dispatch carried —
                                       # identity padding never counted
     n_devices: int = 1                # probe-axis shards (1 = unsharded)
-    # static-analysis pruning is not ported yet: always None / 0
+    # static-analysis pruning (``static_prune``): the verdicts, rungs decided
     static_verdicts: Optional[Dict[str, Dict[str, str]]] = None
     n_pruned: int = 0
     # enumerations of the search's one sweep handle (1 whenever anything
@@ -333,16 +334,20 @@ def autosearch(fn: Callable, args: Sequence = (),
     and raises otherwise. Verdicts land in ``SearchResult.static_verdicts``
     and artifact provenance.
 
-    Not ported yet, and raising ``NotImplementedError``: ``mesh`` /
-    ``in_shardings`` (distribution, ROADMAP Queue A item 11).
+    ``mesh`` (a DeviceMesh, ``launch.mesh``) shards the candidate rows of
+    every dispatch, ladder probes and exclusion rounds alike, across the
+    ranks of ``mesh``'s ``batch_axis`` (``truncate_sweep(mesh=...)``):
+    each rank evaluates its share, the rows are gathered in order, and the
+    dispatch's real rows are padded with identity rows to the shard
+    multiple. The padding never reaches ``evals_used``, ``n_dispatches``,
+    ``max_dispatch_rows`` or the assignments, which equal the unsharded
+    search's; ``probe_batch`` is the padded width and ``n_devices`` the
+    axis's size. ``in_shardings``: the inputs' layout, gathered to the
+    global program's inputs. Every rank of the mesh must call it.
     ``memflag_threshold`` is accepted for signature parity and unused, as
     in the reference.
     """
-    del memflag_threshold, batch_axis  # legacy knob; one device, no axis
-    if mesh is not None or in_shardings is not None:
-        raise NotImplementedError(
-            "autosearch(mesh=..., in_shardings=...) needs distribution "
-            "(ROADMAP Queue A item 11), which is not ported yet")
+    del memflag_threshold  # legacy knob
     metric = _metrics.resolve_metric(metric)
     kwargs = dict(kwargs or {})
     # index 0 of the ladder must always be full precision: scopes the search
@@ -357,6 +362,7 @@ def autosearch(fn: Callable, args: Sequence = (),
     dispatches = 0
     max_rows = 0
     n_traces = 0
+    ndev = probe_axis_size(mesh, batch_axis)
 
     def log(msg: str) -> None:
         if verbose:
@@ -381,7 +387,7 @@ def autosearch(fn: Callable, args: Sequence = (),
             n_compiles=min(dispatches, 1), n_sites=n_sites,
             n_dispatches=dispatches,
             n_warm_hints=len(hints), probe_batch=K,
-            max_dispatch_rows=max_rows, n_devices=1, n_traces=n_traces,
+            max_dispatch_rows=max_rows, n_devices=ndev, n_traces=n_traces,
             static_verdicts=sv.to_json() if sv is not None else None,
             n_pruned=sv.n_decided if sv is not None else 0)
 
@@ -402,7 +408,9 @@ def autosearch(fn: Callable, args: Sequence = (),
     site_policy = TruncationPolicy(rules=tuple(
         TruncationRule(fmt=FPFormat(exp_bits, 0), scope=s.path)
         for s in scopes))
-    sweep = api.truncate_sweep(fn, site_policy, impl=impl)
+    sweep = api.truncate_sweep(fn, site_policy, impl=impl, mesh=mesh,
+                               batch_axis=batch_axis,
+                               in_shardings=in_shardings)
     with torch.no_grad():
         handle = sweep(*args, **kwargs)
     n_traces = sweep.n_traces
@@ -410,8 +418,11 @@ def autosearch(fn: Callable, args: Sequence = (),
     device = handle.device
     # fixed batch width: a full per-scope ladder plus the reference row of
     # the very first dispatch. Every dispatch stands for one
-    # (K, num_sites, 4) stack, the reference's single compiled signature.
-    K = len(cand_widths) + 1
+    # (K, num_sites, 4) stack, the reference's single compiled signature;
+    # under a mesh K is rounded up to the shard multiple, the extra rows
+    # only ever identity padding
+    k_logical = len(cand_widths) + 1
+    K = pad_to_shards(k_logical, mesh, batch_axis)
     identity = handle.identity_table()
 
     if static_prune is not False and static_prune is not None:
@@ -437,13 +448,21 @@ def autosearch(fn: Callable, args: Sequence = (),
         """Evaluate the real rows of one dispatch; numpy outputs per row."""
         # one asynchronous copy of the dispatch's tables
         tables = upload(np.stack(rows).astype(np.int32), device)
+        if ndev > 1:
+            # the ranks' shares, gathered (the collectives synchronise)
+            with torch.no_grad():
+                batched = handle.batch(tables)
+            outs = [pytree.tree_map(lambda t, k=k: t[k], batched)
+                    for k in range(len(rows))]
+            return _to_host(outs, device)
         with torch.no_grad(), _no_host_sync(device):
             outs = [handle(tables[k]) for k in range(len(rows))]
         return _to_host(outs, device)
 
     def eval_candidates(cands: List[Tuple[str, TruncationPolicy]]
                         ) -> List[float]:
-        """Evaluate candidate policies, chunked to the fixed width K;
+        """Evaluate candidate policies, chunked to at most ``k_logical``
+        real rows a dispatch;
         returns metric values and charges one budget eval per candidate."""
         nonlocal evals, dispatches, max_rows
         errs: List[float] = []
@@ -453,7 +472,7 @@ def autosearch(fn: Callable, args: Sequence = (),
             rows = []
             if ref_host[0] is None:
                 rows.append(identity)
-            take = K - len(rows)
+            take = k_logical - len(rows)
             for tag, pol in cands[pos:pos + take]:
                 chunk.append(tag)
                 rows.append(handle.table(pol))

@@ -78,11 +78,11 @@ def value_and_grad(loss_fn):
     return grad_fn
 
 
-def _no_shardings(grad_shardings):
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings= comes with the distribution port (ROADMAP "
-            "Queue A item 5); pass None")
+def _data_mean(tree, group):
+    """The mean of ``tree`` over the ranks of ``group``."""
+    from repro_torch.distributed.sharding import all_reduce
+    world = torch.distributed.get_world_size(group)
+    return T.tree_map(lambda t: all_reduce(t, group, "sum") / world, tree)
 
 
 def _device_scalar(x, dtype, device) -> torch.Tensor:
@@ -93,13 +93,20 @@ def _device_scalar(x, dtype, device) -> torch.Tensor:
     return torch.full((), x, dtype=dtype, device=device)
 
 
-def _build_train_step(tc: TrainConfig, grad_fn):
-    """The shared step body: microbatch accumulation, gradient compression,
-    the optimizer update. ``grad_fn(params, micro_batch, *extra) -> (loss,
-    grads)``; ``*extra`` step arguments (the hot-swap format table) go to
-    every microbatch call."""
+def _build_train_step(tc: TrainConfig, grad_fn, grad_shardings=None,
+                      data_group=None):
+    """The shared step body: microbatch accumulation, the data-parallel
+    mean, gradient compression, the optimizer update. ``grad_fn(params,
+    micro_batch, *extra) -> (loss, grads)``; ``*extra`` step arguments (the
+    hot-swap format table) go to every microbatch call."""
     accum = max(tc.grad_accum, 1)
     split_micro = _split_micro_fn(accum)
+
+    def constrain_grads(g):
+        if grad_shardings is None:
+            return g
+        from repro_torch.distributed.sharding import place_tree
+        return place_tree(g, grad_shardings)
 
     def train_step(params, opt_state, batch, step, *extra):
         device = T.leaves(params)[0].device
@@ -116,6 +123,9 @@ def _build_train_step(tc: TrainConfig, grad_fn):
                 loss = loss + loss_i
             grads = T.tree_map(lambda g: g / accum, acc)
             loss = loss / accum
+        if data_group is not None:
+            loss, grads = _data_mean((loss, grads), data_group)
+        grads = constrain_grads(grads)
 
         if tc.grad_compression == "bf16":
             grads, err = compression.compress_bf16(grads, opt_state["err"])
@@ -141,23 +151,31 @@ def _build_train_step(tc: TrainConfig, grad_fn):
     return train_step
 
 
-def make_train_step(model, tc: TrainConfig, grad_shardings=None):
+def make_train_step(model, tc: TrainConfig, grad_shardings=None, *,
+                    data_group=None):
     """The train step of ``model`` under ``tc``; with ``tc.policy`` the
     differentiated loss runs under ``truncate(..., impl=tc.policy_impl)``
     (``train_step.grad_fn`` is that wrapper, with its ``n_traces``).
-    ``grad_shardings`` must be ``None``."""
-    _no_shardings(grad_shardings)
+
+    ``grad_shardings``: a tree of ``distributed.sharding.NamedSharding``
+    (the parameters' structure or a prefix): each gradient is laid out as
+    its parameter is -- a DTensor gradient is redistributed to the
+    placements, a plain one (the global value every rank holds) keeps its
+    layout, as a sharding constraint changes no value.
+    ``data_group``: the process group of the data axis when every rank
+    trains on its slice of the batch: loss and gradients are averaged over
+    it before the update (what GSPMD's data-parallel reduction does)."""
     grad_fn = value_and_grad(model.loss)
     if tc.policy is not None:
         grad_fn = truncate(grad_fn, tc.policy, impl=tc.policy_impl)
-    step = _build_train_step(tc, grad_fn)
+    step = _build_train_step(tc, grad_fn, grad_shardings, data_group)
     step.grad_fn = grad_fn
     return step
 
 
 def make_hotswap_train_step(model, tc: TrainConfig, site_policy,
                             example_params, example_batch,
-                            grad_shardings=None):
+                            grad_shardings=None, *, data_group=None):
     """A train step whose truncation policy is a runtime argument.
 
     Every ``site_policy``-matched site of the differentiated loss, forward
@@ -179,9 +197,8 @@ def make_hotswap_train_step(model, tc: TrainConfig, site_policy,
     table given as a numpy array is copied to the device at each call
     (a host synchronisation); ``train_step.device_table`` makes the device
     copy once. ``train_step.sweep`` is the ``truncate_sweep`` wrapper
-    (``n_traces`` counts enumerations). ``grad_shardings`` must be
-    ``None``."""
-    _no_shardings(grad_shardings)
+    (``n_traces`` counts enumerations). ``grad_shardings`` and
+    ``data_group`` as for :func:`make_train_step`."""
     accum = max(tc.grad_accum, 1)
     micro = (example_batch if accum == 1
              else _split_micro_fn(accum)(example_batch, 0))
@@ -194,7 +211,7 @@ def make_hotswap_train_step(model, tc: TrainConfig, site_policy,
     def grad_fn(params, micro_batch, table):
         return sweep(params, micro_batch)(table)
 
-    step = _build_train_step(tc, grad_fn)
+    step = _build_train_step(tc, grad_fn, grad_shardings, data_group)
     step.sweep = sweep
     step.device_table = lambda table: torch.as_tensor(
         table, device=device).to(torch.int32)

@@ -25,7 +25,7 @@ from repro_torch.data.pipeline import (
     DataConfig, Pipeline, Prefetcher, to_device, write_token_file,
 )
 from repro_torch.distributed import (
-    StragglerMonitor, SupervisorConfig, run_supervised,
+    StragglerMonitor, SupervisorConfig, best_mesh_shape, run_supervised,
 )
 from repro_torch.optim import tree as T
 
@@ -314,18 +314,114 @@ def test_launch_train_n_layers_cuts_the_depth(tmp_path):
     assert depths == {1}
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--guardrails"], "item 2"), (["--inject-fault", "0:1"], "item 2"),
     (["--multi-pod"], "item 5"), (["--num-hosts", "2"], "item 5"),
-    (["--coordinator", "localhost:1"], "item 5")])
+    (["--coordinator", "localhost:PORT"], "item 5")])
 def test_launch_train_flags_not_ported_raise(tmp_path, flags, item):
-    """The distribution flags (item 5) raise ``NotImplementedError``. The
-    guardrail flags (item 2) are ported: without their prerequisites
-    (``--policy-artifact``, resp. ``--guardrails``) they exit with the
-    reference's message, as ``test_torch_guardrails.py`` checks too."""
+    """The guardrail flags (item 2) without their prerequisites
+    (``--policy-artifact``, resp. ``--guardrails``) exit with the
+    reference's message, as ``test_torch_guardrails.py`` checks too. The
+    distribution flags (item 5) are ported: ``--multi-pod`` builds the
+    512-device production mesh and raises naming the count on one rank;
+    ``--num-hosts 2`` without a coordinator joins ``torchrun``'s group,
+    whose environment is missing here; ``--coordinator`` starts a process
+    group (``tcp://``, a free local port) and trains on it. The launcher
+    takes down a group it started."""
+    import torch.distributed as dist
+    before = dist.is_initialized()
     if item == "item 2":
         with pytest.raises(SystemExit, match="requires"):
             _train(tmp_path, "--steps", "1", *flags)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        _train(tmp_path, "--steps", "1", *flags)
+    if flags == ["--multi-pod"]:
+        with pytest.raises(ValueError, match="512 devices requested, 1 "
+                                             "visible"):
+            _train(tmp_path, "--steps", "1", *flags)
+    elif flags[0] == "--num-hosts":
+        with pytest.raises(ValueError, match="RANK"):
+            _train(tmp_path, "--steps", "1", *flags)
+    else:
+        addr = flags[1].replace("PORT", str(_free_port()))
+        out = _train(tmp_path, "--steps", "1", "--coordinator", addr)
+        assert out["final_step"] == 1
+    assert dist.is_initialized() == before
+
+
+# --------------------------------------------------------------------------
+# elastic re-sharding (the mesh cases of tests/test_checkpoint_ft.py)
+# --------------------------------------------------------------------------
+
+def test_elastic_reshard(tmp_path):
+    """Save replicated, restore with explicit shardings on a one-rank mesh
+    (the same code path re-shards onto any mesh shape): the leaf comes back
+    a DTensor laid out per its sharding, its values the saved ones -- as the
+    reference's restore places its leaf."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from jax.sharding import NamedSharding as JNamedSharding
+    from jax.sharding import PartitionSpec as JP
+    from repro.compat import make_mesh
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import device_mesh
+
+    w = np.arange(16, dtype=np.float32).reshape(4, 4)
+    jmesh = make_mesh((1,), ("data",))
+    jck = JCheckpointer(str(tmp_path / "j"), async_save=False)
+    jck.save(1, {"w": jnp.asarray(w)})
+    jsh = {"w": JNamedSharding(jmesh, JP("data", None))}
+    jout, _ = jck.restore({"w": jnp.asarray(w)}, shardings=jsh)
+    assert jout["w"].sharding == jsh["w"]
+
+    started = not dist.is_initialized()
+    try:
+        mesh = device_mesh((1,), ("data",), device="cpu")
+        ck = Checkpointer(str(tmp_path / "t"), async_save=False)
+        t = {"w": torch.from_numpy(w)}
+        ck.save(1, t)
+        sh = {"w": NamedSharding(mesh, P("data", None))}
+        out, _ = ck.restore(t, shardings=sh)
+        assert isinstance(out["w"], DTensor)
+        assert out["w"].device_mesh == mesh
+        assert list(out["w"].placements) == [Shard(0)]
+        np.testing.assert_array_equal(out["w"].full_tensor().numpy(),
+                                      np.asarray(jout["w"]))
+        # a None sharding keeps the leaf as it is
+        out, _ = ck.restore(t, shardings={"w": None})
+        assert not isinstance(out["w"], DTensor)
+        assert torch.equal(out["w"], t["w"])
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_best_mesh_shape_elastic():
+    from repro.distributed.fault_tolerance import best_mesh_shape as jbest
+    for n, mp in ((512, 16), (256, 16), (24, 16), (7, 16)):
+        assert best_mesh_shape(n, mp) == jbest(n, mp)
+    assert best_mesh_shape(512, 16) == (32, 16)
+    assert best_mesh_shape(256, 16) == (16, 16)
+    assert best_mesh_shape(24, 16) == (3, 8)   # degraded pod: fewer chips
+    assert best_mesh_shape(7, 16) == (7, 1)
+
+
+def test_remesh_over_the_ranks():
+    """``remesh`` builds a (data, model) mesh over the ranks of the process
+    group: one rank here."""
+    import torch.distributed as dist
+    from repro_torch.distributed import remesh
+    from repro_torch.distributed.sharding import mesh_shape
+    started = not dist.is_initialized()
+    try:
+        assert mesh_shape(remesh(16, device="cpu")) == {"data": 1,
+                                                        "model": 1}
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

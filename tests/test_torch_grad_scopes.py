@@ -156,9 +156,12 @@ def test_grad_sites_per_scope_against_the_reference(remat):
 # RWKV-6's time mix, the reference's recompute of its checkpointed chunk
 # (``mul`` 2, ``add`` 2) against one ``reduce_sum``; deepseek-v2's combine
 # under remat, the port's recompute of its gate product; the
-# encoder-decoder's layer norms, the ``add_any`` that sums the residual
-# stream's cotangents (ROADMAP Queue C 21: under a policy rounding
-# ``add_any`` alone in ``dec_layer/layernorm`` this one moves values)
+# encoder-decoder's first encoder layer norm, whose input needs no gradient
+# (its backward frames carry the mask, ``#grad<pos>:10``). The layer norms'
+# ``add_any`` that summed the residual stream's cotangents (two fewer in
+# ``dec_layer/layernorm``, one in ``enc_layer/layernorm``) is repaired:
+# a jitted helper's input cotangents are summed inside it
+# (``interpreter.shared_body``, ROADMAP Queue C 21)
 MIX = {False: ({'add_any': 1, 'convert_element_type': 3, 'mul': 1}, {'add': 1, 'reduce_sum': 1}),
        True: ({'add_any': 1, 'convert_element_type': 4, 'mul': 1}, {'add': 1, 'reduce_sum': 1})}
 LOSS = ({"convert_element_type": 1, "div": 1, "reduce_sum": 1}, {})
@@ -180,17 +183,15 @@ FAMILY_PINNED = {
         "layer/attn/mla_mix": MIX[True],
         "layer/moe/combine": ({}, {"mul": 1, "reduce_sum": 1}),
         "lead_layer0/attn/mla_mix": MIX[False], "loss": LOSS}),
-    ("seamless-m4t-large-v2", False): ((670, 658), {
+    ("seamless-m4t-large-v2", False): ((670, 661), {
         "dec_layer/cross_attn": MIX[False],
-        "dec_layer/layernorm": ({"add_any": 2}, {}),
         "dec_layer/self_attn/mix": MIX[False],
-        "enc_layer/layernorm": ({"add_any": 1}, {"mul": 1, "reduce_sum": 2}),
+        "enc_layer/layernorm": ({}, {"mul": 1, "reduce_sum": 2}),
         "enc_layer/self_attn/mix": MIX[False], "loss": LOSS}),
-    ("seamless-m4t-large-v2", True): ((855, 840), {
+    ("seamless-m4t-large-v2", True): ((855, 843), {
         "dec_layer/cross_attn": MIX[True],
-        "dec_layer/layernorm": ({"add_any": 2}, {}),
         "dec_layer/self_attn/mix": MIX[True],
-        "enc_layer/layernorm": ({"add_any": 1}, {"mul": 1, "reduce_sum": 2}),
+        "enc_layer/layernorm": ({}, {"mul": 1, "reduce_sum": 2}),
         "enc_layer/self_attn/mix": MIX[True], "loss": LOSS}),
 }
 

@@ -40,6 +40,16 @@ What differed before, and the repair of each:
   * ``x ** n`` (``square`` in the channel mix and the layer norms'
     variance): autograd raised ``x`` to the float power ``n - 1``, a
     ``pow`` site the reference does not have (``_pow_backward``).
+  * seamless-m4t-large-v2 under ``dec_layer/layernorm`` rounding
+    ``add_any`` alone (97 % of the cross attention's weights): the
+    reference transposes a jitted helper (``jnp.var``'s ``_var``) as a
+    unit, so the cotangents of its input are summed inside it and reach
+    the caller's sum as one term; autograd added each term to the caller's
+    sum, in another order (``interpreter.shared_body`` now gathers them).
+  * rwkv6-7b under ``layer/time_mix`` rounding ``add_any`` alone (17.5 %
+    of ``w_a``): not a fault. The reference's own result moves as far
+    under a one-ulp change of its embedding, and on such a neighbour it
+    equals the port's (``test_time_mix_sums_are_ill_conditioned``).
   * deepseek-v2-236b under ``layer/attn/mla_mix`` e8m3: not a fault of the
     block. Its inputs differ from the reference's by an ulp (an f32
     multiply-add that XLA's CPU code contracts to one fma and PyTorch
@@ -185,3 +195,53 @@ def test_derivative_formulas_under_one_primitive(arch, scope_, fmt, ops):
     ``square``'s derivative raised ``x`` to the power 1.0, a site the
     reference does not have (``_pow_backward``)."""
     assert_same_gradients(arch, False, scope_, fmt, ops)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_jitted_helpers_sum_their_input_cotangents_inside(remat):
+    """The encoder-decoder under a policy rounding ``add_any`` alone in
+    ``dec_layer/layernorm``. The layer norm's input feeds the mean, the
+    jitted variance (``_var``, itself reading it twice) and the centring,
+    and the residual stream outside. The reference sums ``_var``'s two
+    terms inside its transposed body and adds the result to the caller's
+    sum as one term; the port added each term to the caller's sum, so 97 %
+    of the cross attention's weights were off (ROADMAP Queue C 21)."""
+    assert_same_gradients("seamless-m4t-large-v2", remat,
+                          "dec_layer/layernorm", "e8m3", ("add_any",))
+
+
+def _one_ulp_down(a, seed):
+    """``a`` with a random half of its elements one ulp lower."""
+    a = np.array(a)
+    m = np.random.RandomState(seed).rand(*a.shape) < 0.5
+    a[m] = np.nextafter(a[m], np.float32(-np.inf))
+    return a
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_time_mix_sums_are_ill_conditioned(remat):
+    """RWKV-6 under ``layer/time_mix`` rounding ``add_any`` alone: the
+    whole model's gradients take one of two values, and an ulp decides
+    which. The reference against itself, with half of the embedding's
+    elements one ulp lower, is 17.5 % of ``w_a`` apart; on that neighbour
+    the port's gradients equal the reference's within the measure. The
+    port's forward differs from the reference's by such ulps (an fma, ROADMAP
+    Queue C 3), which is the whole of the 17.5 % the two packages differ
+    by on equal inputs; the time mix alone on equal inputs holds the
+    measure (``test_time_mix_under_one_primitive``)."""
+    jm, jp, jb, tm, tp, tb = setup("rwkv6-7b", B=2, S=16, remat=remat)
+    pol = dict(ops=("add_any",))
+    jf = jc.truncate(jax.value_and_grad(jm.loss),
+                     jc.TruncationPolicy.scoped("layer/time_mix", "e8m3",
+                                                **pol))
+    _, ref = jf(jp, jb)
+    _, ref_near = jf(dict(jp, embed=jnp.asarray(_one_ulp_down(jp["embed"],
+                                                               1))), jb)
+    _, port = tc.truncate(value_and_grad(tm.loss),
+                          tc.TruncationPolicy.scoped("layer/time_mix", "e8m3",
+                                                     **pol))(tp, tb)
+    ref, ref_near = (jax.tree_util.tree_leaves(g) for g in (ref, ref_near))
+    port = [g.detach().numpy() for g in T.leaves(port)]
+    spread = max(off_share(a, b) for a, b in zip(ref, ref_near))
+    assert spread > 10 * OFF_SHARE
+    assert max(off_share(a, b) for a, b in zip(ref_near, port)) <= OFF_SHARE

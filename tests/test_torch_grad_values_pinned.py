@@ -8,10 +8,12 @@ element downstream.
 
 Not here: MLA's ``mla_mix`` row (the attention's pattern, shown on
 olmoe-1b-7b and the cross attention; under ``mla_mix`` an fma ulp at the
-block's inputs moves the model's loss, ``test_torch_grad_values_mla.py``)
-and the encoder-decoder's ``dec_layer/layernorm`` ``add_any`` pair, which
-does move values under a policy rounding ``add_any`` alone there (ROADMAP
-Queue C 21)."""
+block's inputs moves the model's loss, ``test_torch_grad_values_mla.py``).
+The encoder-decoder's layer norms are held with and without remat: the
+``add_any`` that summed the residual stream's cotangents, which moved
+values under a policy rounding ``add_any`` alone, is no longer pinned
+(``test_torch_grad_values_families.py::test_jitted_helpers_sum_their_input_cotangents_inside``,
+ROADMAP Queue C 21)."""
 import pytest
 
 from test_torch_grad_scopes import FAMILY_PINNED
@@ -29,6 +31,7 @@ CASES = (
     ("deepseek-v2-236b", True, "layer/moe/combine"),
     ("seamless-m4t-large-v2", True, "dec_layer/cross_attn"),
     ("seamless-m4t-large-v2", False, "enc_layer/layernorm"),
+    ("seamless-m4t-large-v2", True, "enc_layer/layernorm"),
 )
 
 

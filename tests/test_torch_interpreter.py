@@ -22,6 +22,9 @@ import repro.core as jc
 import repro_torch.core as tc
 from repro_torch.core import interpreter as tinterp
 from repro_torch.core import policy as tpolicy
+from repro_torch.launch.mesh import make_probe_mesh
+
+from test_torch_distributed import one_rank  # noqa: F401 (a fixture)
 
 RUNGS = [f"e{e}m{m}" for e in (8, 5) for m in (23, 15, 10, 7, 5, 3, 2, 1)] + [
     "e4m3", "e4m3fn", "e5m2", "e2m1"]
@@ -362,10 +365,13 @@ def test_in_place_ops_keep_their_aliasing():
     assert torch.equal(tc.truncate(prog, pol)(a, b), expected(a, b))
 
 
-def test_scope_rules_and_keywords_not_ported_yet():
-    """Scope names are one plain segment; ``mesh`` / ``in_shardings`` are
-    not ported yet. ``native_fp8`` is (``test_torch_fp8_dot.py``): with no
-    ``quantize_dot_inputs`` rule it changes no bit."""
+def test_scope_rules_and_keywords_not_ported_yet(one_rank):
+    """Scope names are one plain segment. ``native_fp8`` is ported
+    (``test_torch_fp8_dot.py``): with no ``quantize_dot_inputs`` rule it
+    changes no bit. So are ``mesh`` / ``in_shardings``: on a mesh of one
+    rank the output is the plain one bit for bit, anything but a mesh is
+    refused, and ``in_shardings`` that are no prefix of the arguments raise
+    jit's ``ValueError`` (the multi-rank cases: ``test_torch_spmd.py``)."""
     with pytest.raises(ValueError):
         tc.scope("a/b")
     with pytest.raises(ValueError):
@@ -374,10 +380,14 @@ def test_scope_rules_and_keywords_not_ported_yet():
     xs = T(inputs(seed=8))
     assert torch.equal(tc.truncate(tprog, pol, native_fp8=True)(*xs),
                        tc.truncate(tprog, pol)(*xs))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tc.truncate(tprog, pol, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tc.truncate_sweep(tprog, pol, in_shardings=object())
+    mesh = make_probe_mesh(device="cpu")
+    assert torch.equal(tc.truncate(tprog, pol, mesh=mesh)(*xs),
+                       tc.truncate(tprog, pol)(*xs))
+    with pytest.raises(ValueError, match="prefix"):
+        tc.truncate_sweep(tprog, pol, mesh=mesh,
+                          in_shardings=[None] * (len(xs) + 1))(*xs)
 
 
 def test_transform_called_under_a_scope_keeps_it():

@@ -43,6 +43,10 @@ from repro_torch.configs import get_config
 from repro_torch.core.memmode import NO_LOCATIONS, deviation as tdeviation
 from repro_torch.models import Model
 from repro_torch.models.convert import params_from_jax
+from repro_torch.distributed.sharding import batch_sharding
+from repro_torch.launch.mesh import make_profile_mesh
+
+from test_torch_distributed import one_rank  # noqa: F401 (a fixture)
 
 
 # --------------------------------------------------------------------------
@@ -591,17 +595,30 @@ def test_no_rules_gives_the_plain_program_and_the_sentinel():
     assert rep.flags.tolist() == [0] and rep.op_counts.tolist() == [0]
 
 
-def test_surface_deprecations_and_what_is_not_ported():
+def test_surface_deprecations_and_what_is_not_ported(one_rank):
+    """The positional threshold warns. ``mesh`` / ``allreduce`` are ported:
+    anything but a mesh is refused, ``allreduce`` needs one (``mesh=`` or
+    ``use_mesh``), and on a mesh of one rank both give the single-process
+    report bit for bit (several ranks: ``test_torch_spmd.py``)."""
     (_, _), (tw, tx) = jt(*data())
     pol = tc.TruncationPolicy.everywhere(tc.E5M2)
     with pytest.warns(DeprecationWarning, match="threshold="):
         out_a, rep_a = tc.memtrace(tmodel, pol, 1e-2)(tw, tx)
     out_b, rep_b = tc.memtrace(tmodel, pol, threshold=1e-2)(tw, tx)
     assert torch.equal(rep_a.flags, rep_b.flags)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="mesh"):
         tc.memtrace(tmodel, pol, mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         rep_b.allreduce("data")
+    mesh = make_profile_mesh(1, 1, device="cpu")
+    out_c, rep_c = tc.memtrace(tmodel, pol, threshold=1e-2, mesh=mesh,
+                               in_shardings=[None, batch_sharding(mesh)])(
+        tw, tx)
+    assert torch.equal(out_c, out_b)
+    for got in (rep_c, rep_b.allreduce("data", mesh)):
+        assert got.locations == rep_b.locations
+        for k in ("flags", "max_rel", "op_counts"):
+            assert torch.equal(getattr(got, k), getattr(rep_b, k)), k
 
 
 # --------------------------------------------------------------------------

@@ -39,6 +39,9 @@ from repro_torch.core import (
 )
 from repro_torch.models import Model
 from repro_torch.models.convert import params_from_jax
+from repro_torch.launch.mesh import make_probe_mesh
+
+from test_torch_distributed import one_rank  # noqa: F401 (a fixture)
 
 RTOL = 1e-2
 
@@ -466,18 +469,29 @@ def test_one_enumeration_and_only_the_real_rows_run():
     assert seen and all(t == (np.ndarray, np.ndarray) for t in seen)
 
 
-def test_what_is_not_ported_raises():
+def test_what_is_not_ported_raises(one_rank):
+    """The static analysis and ``mesh`` are ported: a pruned search and a
+    search on a probe mesh of one rank return the unpruned, unsharded
+    one's assignments (several ranks: ``test_torch_spmd.py``); anything but
+    a mesh, and ``in_shardings`` that are no prefix of the arguments, are
+    refused as the reference refuses them."""
     _, ta = toy_args()
     # the static analysis is ported: a pruned search returns the unpruned
     # one's assignments
     pruned = ts.autosearch(ttoy, ta, ts.rel_error, 8, threshold=1e-2,
                            static_prune=True)
     assert pruned.static_verdicts is not None
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="mesh"):
         ts.autosearch(ttoy, ta, ts.rel_error, 8, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="prefix"):
         ts.autosearch(ttoy, ta, ts.rel_error, 8, in_shardings=())
     res = ts.autosearch(ttoy, ta, ts.rel_error, 8, threshold=1e-2)
+    on_mesh = ts.autosearch(ttoy, ta, ts.rel_error, 8, threshold=1e-2,
+                            mesh=make_probe_mesh(device="cpu"))
+    assert on_mesh.n_devices == 1
+    assert on_mesh.history == res.history
+    assert [(a.man_bits, a.excluded) for a in on_mesh.assignments.values()] \
+        == [(a.man_bits, a.excluded) for a in res.assignments.values()]
     assert pruned.assignments.keys() == res.assignments.keys()
     assert [(a.man_bits, a.excluded) for a in pruned.assignments.values()] \
         == [(a.man_bits, a.excluded) for a in res.assignments.values()]

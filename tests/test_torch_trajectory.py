@@ -47,6 +47,8 @@ from repro_torch.profile import (
     TrajectoryReport, fit_log2_trend, ladder_hints, scope_of_location,
 )
 
+from test_torch_distributed import one_rank  # noqa: F401 (a fixture)
+
 # exact vs lossy per-step factors: x2.0 only shifts the exponent (exact in
 # every e?m? format), x1.09 rounds at 2 mantissa bits
 EXACT, LOSSY = 2.0, 1.09
@@ -443,12 +445,23 @@ def test_empty_location_table_sentinel():
     assert tuple(t.max_rel.shape) == tuple(j.max_rel.shape) == (2, 1)
 
 
-def test_allreduce_needs_the_distribution_layer():
-    """The reference's in-SPMD reduction needs a mesh; the port has none
-    yet and says so."""
+def test_allreduce_needs_the_distribution_layer(one_rank):
+    """The reduction over a mesh axis needs a mesh (``mesh=`` or
+    ``use_mesh``, as the reference's needs a mapped axis); over the data
+    axis of a one-rank mesh it is the identity, bit for bit (several ranks:
+    ``test_torch_spmd.py``)."""
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import make_profile_mesh
     _, a = _traj(["l0"], ["s"], [[0.5]], [[1.0]], [[2.0]], [[3]], 1)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         a.allreduce("data")
+    mesh = make_profile_mesh(1, 1, device="cpu")
+    with use_mesh(mesh):
+        b = a.allreduce("data")
+    for k in ("max_rel", "abs_sum", "mag_sum", "op_counts", "steps_seen"):
+        assert torch.equal(torch.as_tensor(getattr(b, k)),
+                           torch.as_tensor(getattr(a, k))), k
+    assert torch.equal(b.totals.flags, torch.as_tensor(a.totals.flags))
 
 
 # --------------------------------------------------------------------------
@@ -499,7 +512,7 @@ def test_profile_trajectory_validates_and_caches():
     with pytest.raises(ValueError, match="n_steps"):
         tc.profile_trajectory(lambda x: x, tc.TruncationPolicy(rules=()),
                               n_steps=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tc.profile_trajectory(lambda x: x, tc.TruncationPolicy(rules=()),
                               mesh=object())
     pol = tc.TruncationPolicy.everywhere("e5m2")
