@@ -6,13 +6,13 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's thirteen paths:
+plain PyTorch version on the card, then drives the port's fourteen paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
     tokens, random weights from a seed;
   * the mem path — mem-mode (``memtrace``) of the same model, depth cut to
-    12 layers, and batch under three policies, held bit for bit to op-mode,
+    2 layers, and batch under three policies, held bit for bit to op-mode,
     with the counters
     (``profile_counts``); phase ``reconcile`` sets the speedup model's
     prediction beside a measured f32 / bf16 ratio at depth 2;
@@ -39,7 +39,7 @@ plain PyTorch version on the card, then drives the port's thirteen paths:
     uniform-low strawman, a swept ladder against ``truncate``, and the same
     search on the CPU (``device="cpu"``) with the same assignments;
   * the trajectory path — ``profile_trajectory`` of h2o-danube-1.8b at full
-    width, depth cut to 12 layers (one layer a step) under the main path's
+    width, depth cut to 2 layers (one layer a step) under the main path's
     policy and with every float result at e8m3, held to ``truncate`` and
     ``memtrace``;
   * the artifact path — the profile -> warm start -> publish -> deploy
@@ -60,7 +60,8 @@ plain PyTorch version on the card, then drives the port's thirteen paths:
     and seamless-m4t-large-v2 at 2 + 2, each at full width, 1 x 2048
     tokens, through one scoped ``truncate`` held to ``impl='ref'``;
   * the serve path — ``repro_torch.launch.serve.main`` at glm4-9b's full
-    width and depth (40 layers, 9.4 B parameters, bf16): 8 ragged requests
+    width, depth cut to 4 of its 40 layers (``--layers 40`` serves all 9.4 B
+    parameters), bf16: 8 ragged requests
     through the continuous-batching ``Engine`` in 4 slots under
     ``scope:**/mlp=e5m7``, every decode step's MLP results through the
     static quantizer; the same parameters through ``Engine`` plain,
@@ -83,6 +84,13 @@ plain PyTorch version on the card, then drives the port's thirteen paths:
     backward runs on autograd's device thread on the card), and
     ``launch.train --production`` with one restore, its checkpoint restored
     bit for bit (at 2 layers unless ``--layers`` is given);
+  * the grad profile path — profiling that training loss: ``profile_counts``,
+    ``memtrace`` and ``profile_trajectory`` of ``value_and_grad(model.loss)``
+    at the train path's width, depth and batch under its policy: the loss
+    and gradients ``truncate``'s bit for bit, the static quantizer's
+    launches = the matched forward, recompute and backward site executions,
+    forward, recompute and backward locations, a trajectory step per layer
+    and direction;
   * the fp8 path — ``truncate(model.loss, P, native_fp8=True)`` of
     h2o-danube-1.8b at full width, depth cut to 12 layers, 1 x 8192
     tokens, ``P`` an e4m3
@@ -110,15 +118,16 @@ last line is ``{"ok": true, "device": {...}}``.
 
 Options (for debugging at a smaller size; the defaults are the full run):
 ``--layers N`` cuts the depth (the search, mesh and artifact paths' is 4,
-the mem and trajectory paths' 8, the fp8 path's 12, the train path's 8 and
-the guard path's 2 unless given; on the models path, olmoe-1b-7b's, 8
-unless given),
+the mem and trajectory paths' 2, the serve path's 4, the fp8 path's 12, the
+train and grad profile paths' 8 and the guard path's 2 unless given; on the
+models path, olmoe-1b-7b's, 8 unless given),
 ``--seq S`` the sequence length of the
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,mem_path,traj_path,fused_path,small_ref,
 times,reconcile,search_path,mesh_path,apps_path,artifact_path,models_path,
-serve_path,train_path,fp8_path,guard_path`` (``kernels`` includes the fp8
+serve_path,train_path,grad_profile_path,fp8_path,guard_path`` (``kernels``
+includes the fp8
 kernel's checks, ``times`` its times; ``fp8_times`` alone times it)
 or adds
 ``fp8_probe`` (the fp8 kernel's design step 0: which tensor-core route holds
@@ -1071,8 +1080,9 @@ def phase_main_path(device, layers, seq):
         times["forward_plain_ms"] = timed(lambda: model.loss(params, batch))
         times["forward_truncate_scoped_e5m7_ms"] = timed(
             lambda: lossy(params, batch))
+        # two calls a table: six tables at full depth are the phase's bulk
         for (n, _), t in zip(ladder, tables):
-            times[f"forward_table_{n}_ms"] = timed(lambda: handle(t))
+            times[f"forward_table_{n}_ms"] = timed(lambda: handle(t), reps=2)
     del params
     torch.cuda.empty_cache()
     return counts, times
@@ -1080,10 +1090,10 @@ def phase_main_path(device, layers, seq):
 
 # the mem path's depth unless --layers is given: every float result under
 # memtrace at full depth (24 layers, ~12 s a call, nine calls) would put the
-# default run past 600 s since the serve path came, and 12 layers since the
-# statically pruned searches came; a location still passes 2^31 elements at
-# any depth
-MEM_LAYERS = 8
+# default run past 600 s since the serve path came, 12 layers since the
+# statically pruned searches came, and 8 since the grad profile path came; a
+# score location still passes 2^31 elements at 2 layers
+MEM_LAYERS = 2
 
 
 def phase_mem_path(device, layers, seq):
@@ -1502,6 +1512,7 @@ SERVE_ARGV = ["--arch", "glm4-9b", "--production", "--batch", "4",
               # seed 0's draws sample request 4 alone (0.4237 < 0.43)
               "--shadow-rate", "0.43"]
 SERVE_BATCH, SERVE_SEQ = 4, 128
+SERVE_LAYERS = 4        # of glm4-9b's 40 (``--layers 40`` serves it whole)
 # every other family's decode at full width, depth cut as on the models path
 # (olmoe-1b-7b at full depth, as there), with the blocks its scoped decode
 # policy rounds: a decode step opens no attention or Mamba scope
@@ -1614,9 +1625,10 @@ def cross_kv_from_encoder(model, params, cache, src_embeds):
     return cache
 
 
-def phase_serve_path(device):
-    """Serving: ``repro_torch.launch.serve.main`` at glm4-9b's full width
-    and depth (the README's serving command) under the scoped e5m7 policy;
+def phase_serve_path(device, layers):
+    """Serving: ``repro_torch.launch.serve.main`` at glm4-9b's full width,
+    depth cut to ``layers`` (the README's serving command; ``--layers 40``
+    serves it whole) under the scoped e5m7 policy;
     the same parameters through ``Engine`` plain, truncated and shadowed;
     bit-identity of shadowed, continuous and isolated decoding; decode
     against the forward; one drift run; then every other family's decode at
@@ -1632,13 +1644,13 @@ def phase_serve_path(device):
     from repro_torch.models import Model, encdec
     from repro_torch.serving import Engine, ShadowConfig
 
-    # ---- 1. the command line, glm4-9b at full width and depth ------------
+    # ---- 1. the command line, glm4-9b at full width ----------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     kernels.reset_launch_counts()           # the serve path starts here
     with torch.no_grad(), decode_steps_sync_free():
-        eng = serve.main(SERVE_ARGV)
+        eng = serve.main(SERVE_ARGV, n_layers=layers)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()        # ... and ends here
     cli_s = time.perf_counter() - t0
@@ -2502,8 +2514,9 @@ def phase_apps_path(device):
 
 
 # the trajectory path's default depth, for the default run's 600 s budget
-# (65 s at 24 layers, 33-37 s at 12); --layers 24 runs it whole
-TRAJ_LAYERS = 8
+# (65 s at 24 layers, 33-37 s at 12, 22 s at 8, 12 s at 4); --layers 24 runs
+# it whole
+TRAJ_LAYERS = 2
 
 
 def phase_traj_path(device, layers, seq):
@@ -3032,7 +3045,8 @@ def phase_train_path(device, layers):
     # the thread check: the card's backward runs on autograd's device
     # thread, the CPU's on the caller's; the sites must be the same
     t0 = time.perf_counter()
-    small = Model(cfg.replace(**TRAIN_CPU_WIDTHS))
+    # the sites of the layers are one set at any depth: two layers suffice
+    small = Model(cfg.replace(**TRAIN_CPU_WIDTHS, n_layers=2))
     cpu_params = small.init(seed=0, device="cpu")
     cpu_batch = {k: v.cpu() % TRAIN_CPU_WIDTHS["vocab"]
                  for k, v in batch.items()}
@@ -3123,6 +3137,138 @@ def phase_train_path(device, layers):
              **{str(k): v for k, v in second["losses"].items()}},
          seconds=round(time.perf_counter() - t_start, 1))
     return {k: counts[k] for k in counts}
+
+
+GRAD_PROFILE_STEPS = 16        # the trajectory's ring: 8 layers, twice
+
+
+def phase_grad_profile_path(device, layers):
+    """Profiling a training loss: ``profile_counts``, ``memtrace`` and
+    ``profile_trajectory`` of ``value_and_grad(model.loss)`` for
+    h2o-danube-1.8b at full width, the train path's depth
+    (``TRAIN_LAYERS``; ``--layers`` sets it) and batch (1 x 2048, ``remat``
+    on), under the train path's ``scope:**/mlp=e5m7``. The counts: forward
+    and backward FLOPs beside the loss forward's, no launch. ``memtrace``:
+    the loss and every gradient bit for bit ``truncate``'s, the static
+    quantizer's launches = the matched forward + recompute + backward site
+    executions (the train path's per-step count), forward, recompute and
+    backward locations, no host synchronisation, one walk of the policy
+    over two calls; its peak memory and time over the plain step's. The
+    trajectory: a step per layer, forward then backward, its totals
+    ``memtrace``'s."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import (memtrace, profile_counts,
+                                  profile_trajectory, truncate,
+                                  truncate_sweep)
+    from repro_torch.core.memmode import BACKWARD_PREFIX, RECOMPUTE_PREFIX
+    from repro_torch.core.policy import parse_policy
+    from repro_torch.data import DataConfig, Pipeline, to_device
+    from repro_torch.models import Model
+    from repro_torch.optim import tree as T
+    from repro_torch.train import value_and_grad
+
+    t_start = time.perf_counter()
+    cfg = get_config("h2o-danube-1.8b").replace(
+        n_layers=layers or TRAIN_LAYERS)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    batch = to_device(Pipeline(DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=1, vocab=cfg.vocab)).next())
+    policy = parse_policy(TRAIN_POLICY)
+    step = value_and_grad(model.loss)
+    torch.cuda.synchronize()
+
+    # ---- the counts: one plain run each, no quantizer --------------------
+    counted, count_launches = launches_of(
+        lambda: profile_counts(step, policy)(params, batch))
+    fwd_counted = profile_counts(model.loss, policy)(params, batch)
+    n_tokens = TRAIN_SEQ
+    counts = dict(
+        step_gflop=counted.total_flops / 1e9,
+        forward_gflop=fwd_counted.total_flops / 1e9,
+        step_over_forward=counted.total_flops / fwd_counted.total_flops,
+        gflop_by_fmt={k: v / 1e9 for k, v in counted.flops_by_fmt.items()},
+        model_flops_step_over_forward=(6.0 * model.n_active_params()
+                                       * n_tokens)
+        / (2.0 * model.n_active_params() * n_tokens),
+        launches=count_launches)
+
+    # ---- truncate, the plain step and the matched site executions --------
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms = timed(lambda: step(params, batch), reps=2)
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    (t_loss, t_grads), t_launches = launches_of(
+        lambda: truncate(step, policy)(params, batch))
+    matched = truncate_sweep(step, policy)(params, batch).index
+    fwd, rem, bwd = site_split(matched)
+
+    # ---- memtrace ---------------------------------------------------------
+    kernels.reset_launch_counts()         # the grad profile path starts here
+    mt = memtrace(step, policy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ((m_loss, m_grads), rep), m_launches = launches_of(
+        lambda: sync_free(lambda: mt(params, batch)))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    mem_peak = torch.cuda.max_memory_allocated() / 2**30
+    mem_ms = timed(lambda: sync_free(lambda: mt(params, batch)), reps=1)
+    grad_bits = sum(bit_mismatches(a, b) for a, b in
+                    zip(T.leaves(m_grads), T.leaves(t_grads)))
+    kinds = {"forward": 0, "recompute": 0, "backward": 0}
+    for loc in rep.locations:
+        kinds["recompute" if loc.startswith(RECOMPUTE_PREFIX) else
+              "backward" if loc.startswith(BACKWARD_PREFIX)
+              else "forward"] += 1
+
+    # ---- the trajectory ---------------------------------------------------
+    (_, traj), tr_launches = launches_of(lambda: sync_free(
+        lambda: profile_trajectory(step, policy, n_steps=GRAD_PROFILE_STEPS)(
+            params, batch)))
+    path_counts = kernels.launch_counts()         # ... and ends here
+    totals_equal = traj.totals.locations == rep.locations and all(
+        torch.equal(getattr(traj.totals, k), getattr(rep, k))
+        for k in ("flags", "max_rel", "op_counts"))
+    steps_seen = int(traj.steps_seen)
+    flags = rep.flags.cpu()
+    info = dict(
+        model=cfg.name, n_layers=cfg.n_layers, batch=[1, TRAIN_SEQ],
+        remat=cfg.remat, policy=TRAIN_POLICY, counts=counts,
+        plain_step_ms=plain_ms, plain_peak_gb=round(plain_peak, 2),
+        memtrace_first_ms=first_ms, memtrace_ms=mem_ms,
+        memtrace_over_plain=mem_ms / plain_ms,
+        memtrace_peak_gb=round(mem_peak, 2),
+        memtrace_peak_over_plain=mem_peak / plain_peak,
+        loss=float(m_loss), loss_bit_equal=same_bits(m_loss, t_loss),
+        grad_mismatching_bits=grad_bits,
+        static_launches=m_launches["quantize_em_static"],
+        truncate_static_launches=t_launches["quantize_em_static"],
+        matched_site_executions=dict(forward=fwd, recompute=rem,
+                                     backward=bwd, total=matched.executions),
+        n_locations=len(rep.locations), locations_by_kind=kinds,
+        total_flags=int(flags.sum()), n_traces=mt.n_traces,
+        top5=[[loc, f, m] for loc, f, m in rep.top(5)],
+        trajectory=dict(steps_seen=steps_seen, n_steps=GRAD_PROFILE_STEPS,
+                        totals_equal_memtrace=totals_equal,
+                        launches=tr_launches),
+        launches=path_counts,
+        seconds=round(time.perf_counter() - t_start, 1))
+    emit("grad_profile_path", **info)
+    check(counts["step_over_forward"] > 3.0 and sum(
+        count_launches.values()) == 0, "grad profile: counts", counts)
+    check(info["loss_bit_equal"] and grad_bits == 0,
+          "grad profile: memtrace != truncate", info)
+    check(info["static_launches"] == matched.executions
+          == info["truncate_static_launches"] and bwd > 0 and rem > 0,
+          "grad profile: static launches", info)
+    check(m_launches["quantize_em_dynamic"] == 0, m_launches)
+    check(all(n > 0 for n in kinds.values()), "grad profile: kinds", kinds)
+    check(mt.n_traces == 1, "grad profile: n_traces", mt.n_traces)
+    check(steps_seen == 2 * cfg.n_layers and totals_equal,
+          "grad profile: trajectory", info["trajectory"])
+    check(math.isfinite(info["loss"]), info)
+    return path_counts
 
 
 # the learning rates and depths of phase ``train_lr``
@@ -4028,7 +4174,8 @@ def main():
                                         "small_ref,times,reconcile,"
                                         "search_path,mesh_path,apps_path,"
                                         "artifact_path,models_path,"
-                                        "serve_path,train_path,fp8_path,"
+                                        "serve_path,train_path,"
+                                        "grad_profile_path,fp8_path,"
                                         "guard_path")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -4086,9 +4233,13 @@ def main():
     if "models_path" in phases:
         by_path["models_path"] = phase_models_path(device, args.layers)
     if "serve_path" in phases:
-        by_path["serve_path"] = phase_serve_path(device)
+        by_path["serve_path"] = phase_serve_path(
+            device, args.layers or SERVE_LAYERS)
     if "train_path" in phases:
         by_path["train_path"] = phase_train_path(device, args.layers)
+    if "grad_profile_path" in phases:
+        by_path["grad_profile_path"] = phase_grad_profile_path(device,
+                                                               args.layers)
     if "fp8_path" in phases:
         by_path["fp8_path"] = phase_fp8_path(device, args.layers, args.seq)
         counts["fp8_dot"] = by_path["fp8_path"]["fp8_dot"]
@@ -4168,6 +4319,7 @@ def main():
                     "serve_path": ("quantize_em_static",),
                     "train_path": ("quantize_em_static",
                                    "quantize_em_dynamic"),
+                    "grad_profile_path": ("quantize_em_static",),
                     "fp8_path": ("fp8_dot",),
                     "guard_path": ("quantize_em_dynamic",)}
     for path, names in path_kernels.items():

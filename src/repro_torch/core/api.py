@@ -362,9 +362,17 @@ def memtrace(fn: Callable, policy: TruncationPolicy, _threshold=None,
     and the elements seen, on the program's device.
 
     Per input signature the policy is matched once and the location table
-    kept (``wrapper.n_traces``). A backward pass inside ``fn`` raises
-    ``NotImplementedError`` (not ported yet, ROADMAP Queue A); so does one
-    inside ``profile_trajectory`` and ``profile_counts``.
+    kept (``wrapper.n_traces``).
+
+    A backward pass inside ``fn`` (``memtrace(train.value_and_grad(loss),
+    policy)``) is profiled too: each backward op is rounded as ``truncate``
+    rounds it, under its forward op's scope, and runs on the shadow lane on
+    the shadows of its inputs (tensors autograd saved keep theirs). Its
+    location is ``"transpose(jvp())/{scope} {prim} @ {file}:{line}"`` with
+    the forward op's line, and an op a ``remat`` region recomputes is at
+    ``"transpose(jvp())/rematted_computation/{scope} ..."``, as the
+    reference names them (its forward ops are at ``jvp()/{scope}``, the
+    port's keep the plain scope).
 
     ``mesh`` / ``in_shardings``: the inputs' layout on a DeviceMesh. The
     report stays EXACT: sharded (DTensor) inputs are gathered and every
@@ -404,7 +412,11 @@ def profile_trajectory(fn: Callable, policy: TruncationPolicy,
     stack). Size it to ``MiniApp.n_steps + 1`` for an exact trajectory;
     longer runs wrap. Inner loops accumulate into their enclosing step's
     row, ops after the last step land in the row after it, and a
-    straight-line program lands entirely in row 0.
+    straight-line program lands entirely in row 0. With a backward pass
+    inside ``fn`` each outermost trip's backward ops (and its ``remat``
+    recompute) are one more step, in the order the backward pass runs them
+    (the last layer's first), as the reference's transposed scan steps: a
+    stack of L layers gives 2 L steps.
 
     ``sites`` restricts the per-step trajectory to matching truncated sites
     (substring patterns over location descriptions): only matching sites
@@ -451,7 +463,13 @@ def profile_counts(fn: Callable, policy: TruncationPolicy, *,
     on data) is counted as its first call ran; ``cache=False`` counts every
     call. ``mesh`` / ``in_shardings`` are accepted as the reference's are
     and only key the cache: the counts are the global program's, which
-    every rank runs."""
+    every rank runs.
+
+    A backward pass inside ``fn`` (``profile_counts(train.value_and_grad(
+    loss), policy)``) is counted too, each backward op under its forward
+    op's scope and named as the reference's transpose names it (``add`` is
+    ``add_any``). A count rounds nothing, so the backward ops are autograd's
+    own derivative formulas, not the reference's (``core.counters``)."""
     suffix = ("counts", policy.cache_key(), _mesh_key(mesh, in_shardings))
 
     def wrapped(*args, **kwargs):

@@ -99,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -274,14 +275,22 @@ class _Frame:
     included), ``stack`` is the policy-visible name stack, ``pos`` counts
     the aten calls made directly inside this entry, ``loop`` says whether
     the entry is one trip of a loop and ``depth`` counts the loop trips it
-    lies in, its own included."""
+    lies in, its own included. ``grad`` is the path under which the
+    backward and recompute frames of this entry's ops are keyed: ``path``,
+    but for the tags of ``loop_body(..., shared_grad=True)``. ``trip``
+    numbers the outermost loop trip the entry lies in (``None`` outside
+    one); a backward frame keeps its forward op's, and ``origin``, the
+    forward op's site key ``(path, position)``."""
 
-    __slots__ = ("path", "stack", "pos", "loop", "depth")
+    __slots__ = ("path", "stack", "pos", "loop", "depth", "grad", "trip",
+                 "origin")
 
     def __init__(self, path: str, stack: str, loop: bool = False,
-                 depth: int = 0):
+                 depth: int = 0, grad: Optional[str] = None, trip=None):
         self.path, self.stack, self.pos = path, stack, 0
         self.loop, self.depth = loop, depth
+        self.grad = path if grad is None else grad
+        self.trip, self.origin = trip, None
 
 
 class _Local(threading.local):
@@ -291,6 +300,7 @@ class _Local(threading.local):
 
 
 _tls = _Local()
+_TRIPS = itertools.count()
 
 
 def _frames() -> List[_Frame]:
@@ -300,11 +310,17 @@ def _frames() -> List[_Frame]:
     return fr
 
 
-def _push(tag: str, visible: bool, loop: bool):
+def _push(tag: str, visible: bool, loop: bool, shared_grad: bool = False):
     top = _frames()[-1]
-    return _enter(_Frame(join_stack(top.path, tag),
+    # a hidden loop's body is one traced body to the reference, also inside
+    # calls whose forward sites are their own (``shared_grad``)
+    base = top.grad if loop and not visible else top.path
+    return _enter(_Frame(join_stack(base, tag),
                          join_stack(top.stack, tag) if visible else top.stack,
-                         loop, top.depth + loop))
+                         loop, top.depth + loop,
+                         top.grad if shared_grad else join_stack(top.grad,
+                                                                 tag),
+                         next(_TRIPS) if loop and not top.depth else top.trip))
 
 
 @contextlib.contextmanager
@@ -348,14 +364,18 @@ def scope(name: str, *, loop: bool = False):
     return _push(name, True, loop)
 
 
-def loop_body(tag: str, *, once: bool = False):
+def loop_body(tag: str, *, once: bool = False, shared_grad: bool = False):
     """Mark the body of a Python loop: every iteration entered through this
     context shares one set of sites, and the policy-visible name stack does
     not change (what a scanned body is to the reference). ``once=True``
     marks a hidden frame of one trip instead: straight-line code that needs
     sites of its own (a scope entered a second time), which is no loop and
-    never a trajectory step."""
-    return _push("#" + tag, False, not once)
+    never a trajectory step. ``shared_grad=True`` keeps those forward sites
+    its own but keys its backward and ``remat`` recompute frames as if the
+    tag were absent, so every call's backward shares one set of sites (the
+    calls of one ``jax.checkpoint``-ed function in the reference: each
+    call's forward is its own, their transposed body one)."""
+    return _push("#" + tag, False, not once, shared_grad)
 
 
 @contextlib.contextmanager
@@ -385,10 +405,10 @@ def shared_body(name: str, *inputs: torch.Tensor):
     # positions, so the body's sites do not depend on which inputs autograd
     # records, and each call's delivery is a site of its own
     with _enter(_Frame(join_stack(top.path, "#in" + tag), top.stack, False,
-                       top.depth)):
+                       top.depth, trip=top.trip)):
         inputs = tuple(loop_const(t) for t in inputs)
     with _enter(_Frame(join_stack(top.stack, tag), top.stack, False,
-                       top.depth)):
+                       top.depth, trip=top.trip)):
         yield inputs
 
 
@@ -520,8 +540,9 @@ class _Grads:
                 need = "".join("0" if f is None else "1"
                                for f, _ in node.next_functions)
                 tag = f"#grad{fpos}" + (f":{need}" if "0" in need else "")
-                frame = _Frame(join_stack(ff.path, tag), ff.stack, False,
-                               ff.depth)
+                frame = _Frame(join_stack(ff.grad, tag), ff.stack, False,
+                               ff.depth, trip=ff.trip)
+                frame.origin = (ff.path, fpos)
             self.bwd[seq] = frame
         return self._next(frame, counted) + (True,)
 
@@ -541,10 +562,10 @@ def _recompute(snapshot):
     one-trip ``#remat`` frame on top (the recomputed ops are sites of their
     own, as the reference's rematerialised equations are), positions from
     zero."""
-    frames = [_Frame(p, s, lp, d) for p, s, lp, d in snapshot]
+    frames = [_Frame(*f) for f in snapshot]
     top = frames[-1]
-    frames.append(_Frame(join_stack(top.path, "#remat"), top.stack, False,
-                         top.depth))
+    frames.append(_Frame(join_stack(top.grad, "#remat"), top.stack, False,
+                         top.depth, trip=top.trip))
     saved = _tls.frames, _tls.recompute
     _tls.frames, _tls.recompute = frames, True
     try:
@@ -563,7 +584,8 @@ def remat(fn, *args):
             isinstance(a, torch.Tensor) and a.requires_grad
             for a in pytree.tree_leaves(args)):
         return fn(*args)
-    snapshot = [(f.path, f.stack, f.loop, f.depth) for f in _frames()]
+    snapshot = [(f.path, f.stack, f.loop, f.depth, f.grad, f.trip)
+                for f in _frames()]
 
     def contexts():
         return contextlib.nullcontext(), _recompute(snapshot)
@@ -937,9 +959,6 @@ class _WalkMode(TorchDispatchMode):
     answer: a forward op's frame, or the backward frame of the forward op
     whose autograd node it belongs to."""
 
-    # mem-mode pairs lanes op by op in program order; a backward pass has
-    # no such order to pair yet
-    backward_ok = True
     # whether backward ops follow the reference's formulas (``_FORMULAS``):
     # every walk that rounds or enumerates
     formulas = True
@@ -954,18 +973,14 @@ class _WalkMode(TorchDispatchMode):
         frame, pos, backward = grads.site(func is not _DETACH)
         kwargs = kwargs or {}
         if backward:
-            if not self.backward_ok:
-                raise NotImplementedError(
-                    f"{type(self).__name__}: a backward pass inside the "
-                    "profiled function (torch.autograd.grad) is not supported "
-                    "by mem-mode and trajectories yet (ROADMAP Queue A)")
             prim = _BACKWARD_PRIM.get(prim, prim)
             node = grads.node
             formula = (_FORMULAS.get(node.name())
                        if self.formulas and node is not None and not kwargs
                        else None)
             if formula is not None:
-                out = formula(self, node, frame, pos, func, args)
+                with self.formula_lanes():
+                    out = formula(self, node, frame, pos, func, args)
                 if out is not _MISS:
                     return out
         elif func is _RSQRT and grads.claimed is not None and self.formulas:
@@ -999,6 +1014,11 @@ class _WalkMode(TorchDispatchMode):
     def on_inputs(self, frame, pos, prim, func, args, kwargs):
         """Returns ``(args, kwargs, routed output indices)``."""
         return args, kwargs, ()
+
+    def formula_lanes(self):
+        """The context a derivative formula (``_FORMULAS``) runs its ops in
+        (mem-mode runs them on both lanes)."""
+        return contextlib.nullcontext()
 
     def run(self, func, args, kwargs, mutates):
         return func(*args, **kwargs)

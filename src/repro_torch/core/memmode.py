@@ -41,6 +41,17 @@ reference's semantics:
     kernel's row is never routed into its epilogue: its output takes the
     separate quantize pass, as in the reference.
 
+**A backward pass** inside the profiled function (``value_and_grad`` of a
+loss) is walked as op-mode walks it (``interpreter._Grads``): every backward
+op runs on both lanes under its forward op's scope, the seed gradient has
+no separate shadow, the engine's sums of a tensor's cotangents are ops of
+the walk, a derivative formula's ops (``interpreter._FORMULAS``) run on both
+lanes under ``_PairMode``, and a tensor autograd saves keeps its shadow
+(``run_shadowed`` packs it as a detached alias the walk pairs; inside a
+``remat`` region the recompute, forward code under the walk, makes them).
+A backward op's location carries its forward op's line, which the engine's
+thread cannot read off its own stack (``LocationTable``).
+
 Counts are int64 on the program's device; the reference's are int32 unless
 x64 is on, which a full-width model outgrows. Nothing here synchronises
 with the host: the report stays on the device until it is read.
@@ -55,12 +66,16 @@ depth-0 ``scan`` or ``while`` is to the reference. Each site execution adds
 its largest deviation, its |error| sum, its |shadow| sum and its element
 count to the row of the step it runs in; at the end of the run each step's
 row folds into the ring at ``step % traj_len``, in step order, and ops after
-the last step (a final norm, the logits) land in the row after it. The step
+the last step (a final norm, the logits) land in the row after it. A
+backward pass adds a step for each outermost trip it differentiates, in the
+order it runs them (``_Tally.in_trip``), as each trip of the reference's
+transposed scan is one. The step
 counter is a host integer (the loops are Python loops); every statistic
 stays on the device, and the run makes no host synchronisation.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -70,9 +85,10 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.weak import WeakTensorKeyDictionary
 
-from repro_torch.core.interpreter import (_PolicyMode, _fresh_root,
+from repro_torch.core.interpreter import (_PolicyMode, _fresh_root, _tls,
                                           _maybe_quantize, on_step)
 from repro_torch.core.policy import TruncationPolicy
 
@@ -213,6 +229,10 @@ _OWN_DIRS = tuple(d + os.sep for d in (
     os.path.join(os.path.dirname(_CORE_DIR), "kernels")))
 
 
+def _join(prefix: str, stack: str) -> str:
+    return f"{prefix}/{stack}" if stack else prefix
+
+
 def _user_line() -> str:
     """``file:line`` of the innermost frame that is neither torch nor the
     profiler (``repro_torch.core``, ``repro_torch.kernels``): the program's
@@ -226,24 +246,47 @@ def _user_line() -> str:
     return "?"
 
 
+# the reference's name-stack prefixes of a differentiated program's
+# backward ops and of their rematerialised forward ops
+BACKWARD_PREFIX = "transpose(jvp())"
+RECOMPUTE_PREFIX = "transpose(jvp())/rematted_computation"
+
+
 class LocationTable:
     """What one input signature keeps between calls: ``plan``, the rule
     decided for each site key ``(scope path, position, output index)`` (as
     op-mode's), the location id of each matched key, and the location
     descriptors ``"{scope} {prim} @ {file}:{line}"`` in order of first
-    appearance (sites on one line with one scope and primitive share one)."""
+    appearance (sites on one line with one scope and primitive share one).
+
+    In a program that differentiates itself a backward op's scope is
+    ``transpose(jvp())/{forward scope}`` and its line its forward op's (read
+    through the autograd node: the engine's thread has no user frames), and
+    a ``remat`` recompute's is ``transpose(jvp())/rematted_computation/
+    {scope}``, as the reference names them. A forward op keeps its plain
+    scope, where the reference writes ``jvp()/{scope}``. ``lines`` keeps
+    each forward op's line by site key ``(scope path, position)``."""
 
     def __init__(self):
         self.plan: Dict[Tuple, Any] = {}
         self.locs: Dict[Tuple, int] = {}
         self.names: List[str] = []
+        self.lines: Dict[Tuple, str] = {}
         self._ids: Dict[str, int] = {}
 
-    def location(self, key: Tuple, stack: str, prim: str) -> int:
+    def location(self, key: Tuple, frame, prim: str, backward: bool) -> int:
         idx = self.locs.get(key)
         if idx is not None:
             return idx
-        desc = f"{stack or '<root>'} {prim} @ {_user_line()}"
+        stack = frame.stack
+        if backward:
+            line = self.lines.get(frame.origin, "?")
+            stack = _join(BACKWARD_PREFIX, stack)
+        else:
+            line = _user_line()
+            if _tls.recompute:
+                stack = _join(RECOMPUTE_PREFIX, stack)
+        desc = f"{stack or '<root>'} {prim} @ {line}"
         idx = self._ids.get(desc)
         if idx is None:
             idx = self._ids[desc] = len(self.names)
@@ -275,6 +318,7 @@ class _Tally:
                            else None)
         self.names = names
         self.step = 0                  # outermost-loop trips ended so far
+        self._trip = None              # the trip a backward pass is in
         self.t_at: List[Tuple[int, int]] = []      # (step, location)
         self.t_size: List[int] = []
         self.t_max: List[torch.Tensor] = []
@@ -285,6 +329,16 @@ class _Tally:
     def bump(self):
         """The end of one outermost-loop trip (``interpreter.on_step``)."""
         self.step += 1
+
+    def in_trip(self, trip):
+        """An op of a backward pass (or of a ``remat`` recompute) that
+        belongs to the forward's outermost-loop trip ``trip`` (``None``: to
+        none, as a forward op): a change ends the trip it was in, a step,
+        as each trip of the reference's transposed scan is one."""
+        if trip != self._trip:
+            if self._trip is not None:
+                self.step += 1
+            self._trip = trip
 
     def _selects(self, desc: str) -> bool:
         """Whether the location ``desc`` gets a trajectory column."""
@@ -459,14 +513,45 @@ def _generator(args, kwargs) -> torch.Generator:
     return torch.default_generator
 
 
+class _PairMode(TorchDispatchMode):
+    """Runs every op on both lanes and keeps each output's shadow in the
+    side table: the ops of a derivative formula (``interpreter._FORMULAS``),
+    which the walk hands to the formula instead of running them one by
+    one. ``off`` while the walk rounds and tallies a formula's site."""
+
+    def __init__(self, walk: "_ShadowMode"):
+        super().__init__()
+        self.walk, self.off = walk, False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self.off or not _returns_tensors(func):
+            return out
+        walk = self.walk
+        sh_args, sh_kwargs, paired = walk._lanes(args, kwargs)
+        if paired:
+            sh = func(*sh_args, **sh_kwargs)
+            for o, so in zip(pytree.tree_leaves(out), pytree.tree_leaves(sh)):
+                if isinstance(o, torch.Tensor) and so is not o:
+                    walk.shadows[o] = so
+        return out
+
+
 class _ShadowMode(_PolicyMode):
     """The paired walk (the reference's ``_eval`` over two environments):
     op-mode's walk (site keys, scopes, primitive names, the rule memo) with
     each op run on the shadow lane too, when any input has a separate
     shadow. Under mem-mode a dot-input rule quantizes no inputs and no row
-    is routed into a fused kernel."""
+    is routed into a fused kernel.
 
-    backward_ok = False
+    A backward pass inside the function is walked as op-mode walks it
+    (``interpreter._Grads``), each op on both lanes: the cotangents' shadows
+    are the backward ops' shadow outputs (the seed has none), the engine's
+    sums of a tensor's cotangents are ops of the walk, a derivative
+    formula's ops run under ``_PairMode``, and a tensor autograd saves for
+    the backward keeps its shadow (``run_shadowed``'s saved-tensor hooks;
+    inside a ``remat`` region the recompute makes the shadows)."""
 
     def __init__(self, policy: TruncationPolicy, threshold: float, impl: str,
                  table: LocationTable, traj_len: int = 0, traj_sites=None):
@@ -475,6 +560,7 @@ class _ShadowMode(_PolicyMode):
         self.shadows = WeakTensorKeyDictionary()
         self.tally = _Tally(threshold, traj_len, traj_sites, table.names)
         self._sh_out, self._mutates = None, False
+        self._pair = _PairMode(self)
 
     # ---- the side table ----------------------------------------------------
     def _shadow(self, t: torch.Tensor) -> torch.Tensor:
@@ -527,8 +613,27 @@ class _ShadowMode(_PolicyMode):
                 paired)
 
     # ---- the walk's hooks --------------------------------------------------
+    def _backward(self, frame) -> bool:
+        return frame.origin is not None or frame is self.grads.orphan
+
     def on_inputs(self, frame, pos, prim, func, args, kwargs):
+        grads = self.grads
+        if grads.claimed is not None:
+            # a forward op autograd records: its line, which its backward
+            # ops' locations name
+            key = (frame.path, pos)
+            if key not in self.table.lines:
+                self.table.lines[key] = _user_line()
+        if self.tally.traj_len:
+            self.tally.in_trip(frame.trip if _tls.recompute
+                               or self._backward(frame) else None)
         return args, kwargs, ()
+
+    @contextlib.contextmanager
+    def formula_lanes(self):
+        self._sh_out, self._mutates = None, False
+        with self._pair:
+            yield
 
     def run(self, func, args, kwargs, mutates):
         sh_args, sh_kwargs, paired = self._lanes(args, kwargs)
@@ -554,8 +659,19 @@ class _ShadowMode(_PolicyMode):
         return out
 
     def on_output(self, frame, pos, out_idx, prim, low):
+        pair, off = self._pair, self._pair.off
+        pair.off = True
+        try:
+            return self._paired_output(frame, pos, out_idx, prim, low)
+        finally:
+            pair.off = off
+
+    def _paired_output(self, frame, pos, out_idx, prim, low):
         sh = self._sh_out
-        shadow = sh if isinstance(sh, torch.Tensor) else sh[out_idx]
+        if sh is None:                  # a formula's value: see _PairMode
+            shadow = self._shadow(low)
+        else:
+            shadow = sh if isinstance(sh, torch.Tensor) else sh[out_idx]
         out = low
         if self.live and low.dtype.is_floating_point:
             rule = self._rule(frame, pos, out_idx, prim, low.dtype)
@@ -565,8 +681,11 @@ class _ShadowMode(_PolicyMode):
                     # the walk copies ``out`` into the written tensor, which
                     # keeps its storage: its shadow must not be that storage
                     shadow = self._separate(low)
-                loc = self.table.location((frame.path, pos, out_idx),
-                                          frame.stack, prim)
+                backward = self._backward(frame)
+                if backward and self.tally.traj_len:
+                    self.tally.in_trip(frame.trip)
+                loc = self.table.location((frame.path, pos, out_idx), frame,
+                                          prim, backward)
                 self.tally.add(loc, out, shadow)
         kept = low if self._mutates else out
         if shadow is not kept:
@@ -596,6 +715,20 @@ def run_shadowed(fn, args, kwargs, policy: TruncationPolicy, threshold: float,
     rows; ``traj_sites`` (substring patterns over location descriptions)
     narrows its columns to the matching locations."""
     mode = _ShadowMode(policy, threshold, impl, table, traj_len, traj_sites)
-    with _fresh_root(), on_step(mode.tally.bump), mode:
+    # a tensor autograd saves for a backward pass is packed as a detached
+    # alias that the walk pairs, so its shadow is found when it is unpacked
+    # whatever object autograd would otherwise hand back for it (a saved
+    # output is rebuilt from its data, a tensor the side table may not know)
+    hooks = torch.autograd.graph.saved_tensors_hooks(_detach, _same)
+    with _fresh_root(), on_step(mode.tally.bump), mode, hooks:
         out = fn(*args, **kwargs)
+        mode.tally.in_trip(None)
     return out, mode.report(_program_device(args, kwargs))
+
+
+def _detach(t):
+    return t.detach()
+
+
+def _same(t):
+    return t

@@ -12,9 +12,10 @@ For each cell the record holds:
   * ``model_flops``: 6 N D for training, 2 N D for a prefill, 2 N B a decoded
     token (N the active parameters);
   * ``jaxpr_flops`` / ``jaxpr_bytes`` / ``jaxpr_bytes_fused``: the global
-    FLOPs and bytes of ``profile_counts`` run on the meta tensors -- the loss
-    forward for a train cell (a backward pass inside ``profile_counts`` is
-    not ported), the prefill forward, one decode step. A family whose
+    FLOPs and bytes of ``profile_counts`` run on the meta tensors -- the
+    whole train step for a train cell (value and gradients of the loss,
+    the AdamW update; autograd's derivative formulas, see
+    ``core.counters``), the prefill forward, one decode step. A family whose
     program reads tensor values on the host (MoE dispatch) does not run on
     meta tensors: its counts are ``None`` and ``counts_note`` says why.
 
@@ -42,6 +43,8 @@ from repro_torch.core import api, counters
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import specs as sp
 from repro_torch.models import Model
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.trainer import TrainConfig, make_train_step
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
                        "repro_torch", "dryrun")
@@ -68,6 +71,17 @@ def _serve_rules(model: Model):
     return None
 
 
+def train_step(model: Model):
+    """The train step a train cell counts: value and gradients of the loss
+    (``grad_accum`` microbatches) and the AdamW update, as the reference's
+    dry-run lowers it."""
+    cfg = model.cfg
+    tc = TrainConfig(optimizer=AdamWConfig(
+        state_dtype=_STATE_DTYPE.get(cfg.name, "float32")),
+        grad_accum=cfg.grad_accum)
+    return make_train_step(model, tc)
+
+
 def abstract_cell(arch_id: str, shape: InputShape, multi_pod: bool):
     """``(model, mesh, fn, args, memory parts)`` of one cell: the program
     to count and its meta inputs, and the per-device bytes of each part."""
@@ -82,7 +96,8 @@ def abstract_cell(arch_id: str, shape: InputShape, multi_pod: bool):
             parts["opt_state"] = sp.opt_state_specs(
                 model, mesh, _STATE_DTYPE.get(cfg.name, "float32"))
             batch = parts["inputs"] = sp.input_specs(cfg, shape, mesh)
-            fn, args = model.loss, (params, batch)
+            fn, args = train_step(model), (params, parts["opt_state"],
+                                           batch, 0)
         elif shape.kind == "prefill":
             batch = parts["inputs"] = sp.input_specs(cfg, shape, mesh,
                                                      with_labels=False)
@@ -142,7 +157,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
             memory={"by_part": memory, "argument_bytes": total,
                     "temp_bytes": None, "hbm_bytes": HBM_BYTES,
                     "fits": total <= HBM_BYTES},
-            counts_of={"train": "loss forward", "prefill": "prefill forward",
+            counts_of={"train": "train step", "prefill": "prefill forward",
                        "decode": "one decode step"}[shape.kind],
         )
         rec["jaxpr_flops"] = rec["jaxpr_bytes"] = None

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -114,13 +115,17 @@ def workload(vocab: int, n: int, prompt_len: int, seed: int = 0):
     return out
 
 
-def main(argv=None) -> Engine:
+def main(argv=None, *, n_layers: Optional[int] = None) -> Engine:
     """Serve ``--requests`` requests and print what was served; returns the
     engine that served them (its ``params`` and ``model`` stay usable, and
-    ``served_seconds`` holds the wall time of the drain)."""
+    ``served_seconds`` holds the wall time of the drain). ``n_layers`` cuts
+    the configuration's depth (a caller's shorter run of a full-width
+    model); ``None`` keeps it."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch, "smoke" if args.smoke else "full")
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     model = Model(cfg)
     # serving uses TP-only params when they fit (the reference's layout)
     mesh = (make_host_mesh(model_parallel=2, device=device)

@@ -170,16 +170,51 @@ def square(x):
     return torch.square(x)
 
 
+def _logaddexp0(x):
+    amax = torch.clamp_min(x, 0.0)
+    delta = x - 0.0
+    is_nan = delta != delta
+    total = x + 0.0
+    tail = torch.log1p(torch.exp(-torch.abs(delta)))
+    return torch.where(is_nan, total, amax + tail)
+
+
+def _finite_or_zero(t):
+    return torch.where(t == math.inf, 0.0, t)
+
+
+class _Softplus(torch.autograd.Function):
+    """``logaddexp(x, 0)`` differentiated by the reference's custom JVP:
+    the forward also computes the residual ``exp(x - out)`` and the zero
+    operand's ``0 * exp(0 - out)`` (sub, exp, sub, exp, mul: sites of the
+    forward), and the backward is the cotangent's one product with the
+    residual. autograd's own formula goes through ``log1p``'s and ``abs``'s
+    derivatives (a ``div`` and ``add_any`` sites the reference does not
+    have)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = _logaddexp0(x)
+        c = torch.exp(_finite_or_zero(x) - _finite_or_zero(out))
+        0.0 * torch.exp(0.0 - _finite_or_zero(out))
+        ctx.save_for_backward(c)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (c,) = ctx.saved_tensors
+        return g * c
+
+
 def softplus(x):
     """The reference's ``logaddexp(x, 0)``, step for step: max, sub, add,
-    abs, neg, exp, log1p, add, select."""
+    abs, neg, exp, log1p, add, select. Differentiated in a walk that
+    follows the reference's derivative formulas, by its JVP
+    (``_Softplus``); a plain run keeps autograd's."""
     with shared_body("softplus", x) as (x,):
-        amax = torch.clamp_min(x, 0.0)
-        delta = x - 0.0
-        is_nan = delta != delta
-        total = x + 0.0
-        tail = torch.log1p(torch.exp(-torch.abs(delta)))
-        return torch.where(is_nan, total, amax + tail)
+        if x.requires_grad and torch.is_grad_enabled() and _formulas_walk():
+            return _Softplus.apply(x)
+        return _logaddexp0(x)
 
 
 class _Tanh(torch.autograd.Function):

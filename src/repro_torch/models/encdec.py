@@ -23,7 +23,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.interpreter import loop_body, loop_const, scope
+from repro_torch.core.interpreter import (loop_body, loop_const, scope,
+                                          zero_cotangents)
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention
 from repro_torch.models.common import ParamDef, resolve_device, torch_dtype
@@ -155,12 +156,18 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
         return _dec_layer(cfg, p_l, x, memory, positions)[0]
 
     for p_l in unstack(params["dec_layers"], cfg.n_layers):
-        # under remat the reference sums the layers' cotangents of the
-        # memory (a const of its checkpointed scan) outside the layer's
-        # scopes; without it, under the cross attention's
+        # the memory is a const of the reference's decoder scan. Under
+        # remat it transposes each checkpointed layer as a unit: the
+        # layer's two cotangents (k and v) are summed inside it, under the
+        # cross attention, and the layers' sums outside the layer's scopes.
+        # Without remat each cotangent is added, under the cross attention,
+        # to a running sum that starts at zero: v's, then k's, layer by
+        # layer
         mem = loop_const(memory) if cfg.remat else memory
         with scope("dec_layer", loop=True):
             x = _maybe_remat(cfg, body, x, p_l, mem)
+    if not cfg.remat:
+        x = zero_cotangents(x, memory)
     if last_only:
         x = x[:, -1:]
     with scope("final_norm"):

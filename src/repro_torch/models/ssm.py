@@ -107,25 +107,28 @@ def _mamba_core(p, xz, cfg: ArchConfig, conv_state, ssm_state, *,
         y = common.einsum("bdn,bn->bd", ssm_state, c_t)[:, None].to(x.dtype)
     else:
         # chunked over the sequence, token by token inside a chunk
-        c, nch = _chunks(S)
+        c, _ = _chunks(S)
         h = ssm_state.to(_F32)
         ys = []
-        for ci in range(nch):
+        # each loop's inputs come from one split / unbind: the reference's
+        # scans stack their inputs' cotangents, where per-trip slices
+        # would sum them (``add_any`` sites it does not have)
+        for dt_c, xc_c, b_c, cc_c in zip(*(torch.split(t, c, dim=1)
+                                           for t in (dt, xc, Bc, Cc))):
             with loop_body("chunk"):
-                sl = slice(ci * c, (ci + 1) * c)
-                dt_c, xc_c = dt[:, sl], xc[:, sl]
-                b_c, cc_c = Bc[:, sl], Cc[:, sl]
-                da = torch.exp(dt_c.to(_F32)[..., None] * A)    # (B,c,di,N)
+                da = torch.exp(dt_c.to(_F32)[..., None]
+                               * loop_const(A))                 # (B,c,di,N)
                 dbx = (dt_c.to(_F32) * xc_c.to(_F32))[..., None] \
                     * b_c.to(_F32)[..., None, :]
-                cc_f = cc_c.to(_F32)
-                for t in range(c):
+                for da_t, dbx_t, c_t in zip(da.unbind(1), dbx.unbind(1),
+                                            cc_c.to(_F32).unbind(1)):
                     with loop_body("step"):
-                        h = da[:, t] * h + dbx[:, t]            # (B,di,N)
-                        ys.append(common.einsum("bdn,bn->bd", h,
-                                                cc_f[:, t]))
+                        h = da_t * h + dbx_t                    # (B,di,N)
+                        ys.append(common.einsum("bdn,bn->bd", h, c_t))
         ssm_state = h
-        y = torch.stack(ys, dim=1).to(x.dtype)                  # (B,S,di)
+        # the final carry's and ``A``'s cotangent sums start at zero, as
+        # the reference's scan transposes start them
+        y = zero_cotangents(torch.stack(ys, dim=1), h, A).to(x.dtype)
 
     y = y + xc * p["d_skip"].to(x.dtype)
     y = y * common.silu(z)

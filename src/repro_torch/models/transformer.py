@@ -351,7 +351,7 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
             x, _ = layer_forward(cfg, params["lead_layers"][i], x,
                                  positions, "dense_lead", is_global=None)
 
-    layers = unstack(params["layers"], cfg.n_layers - _n_lead(cfg))
+    stack, n_stack = params["layers"], cfg.n_layers - _n_lead(cfg)
     kind = _stack_kind(cfg)
 
     def body(is_global):
@@ -361,19 +361,28 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
         return run
 
     if cfg.scan_layers:
-        for seg, lo, hi in segments(cfg):
+        segs = segments(cfg)
+        for seg, lo, hi in segs:
             if seg == "scan":
-                for i in range(lo, hi):
+                # as the reference scans a slice of the stack per segment
+                # (and indexes it for a global layer), the stack's
+                # cotangent is the sum of the segments' (``add_any`` sites
+                # at the root); one segment is the whole stack, unsliced
+                part = (stack if len(segs) == 1
+                        else pytree.tree_map(lambda t: t[lo:hi], stack))
+                for p_l in unstack(part, hi - lo):
                     # one layer is one trip of the reference's scan: one
                     # trajectory step here
                     with scope("layer", loop=True):
-                        x = _maybe_remat(cfg, body(False), x, layers[i])
+                        x = _maybe_remat(cfg, body(False), x, p_l)
             else:
-                with _global_frame(cfg, lo), scope("global_layer"):
-                    x = _maybe_remat(cfg, body(True), x, layers[lo])
+                p_l = _tree_index(stack, lo)
+                with _global_frame(cfg, lo, x, p_l), scope("global_layer"):
+                    x = _maybe_remat(cfg, body(True), x, p_l)
     else:
+        layers = unstack(stack, n_stack)
         globals_set = {i - _n_lead(cfg) for i in cfg.global_layers}
-        for i in range(cfg.n_layers - _n_lead(cfg)):
+        for i in range(n_stack):
             with scope(f"layer{i}"):
                 x = body(i in globals_set)(x, layers[i])
 
@@ -395,12 +404,18 @@ def _maybe_remat(cfg: ArchConfig, fn, *args):
     return remat(fn, *args) if cfg.remat else fn(*args)
 
 
-def _global_frame(cfg: ArchConfig, idx: int):
-    """Global layers share one set of sites under ``remat`` (the reference
-    re-uses its one traced checkpoint body) and have their own otherwise."""
-    if cfg.remat:
+def _global_frame(cfg: ArchConfig, idx: int, x, p_l):
+    """Each global layer has sites of its own without ``remat``. Under it
+    the reference calls one checkpointed function: in a program autograd
+    does not record the calls share one traced body, and in one it does
+    each call's forward is its own while the backward and the recompute
+    stay one (``loop_body(..., shared_grad=True)``)."""
+    if not cfg.remat:
+        return loop_body(f"global{idx}", once=True)
+    if not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x, *pytree.tree_leaves(p_l)])):
         return contextlib.nullcontext()
-    return loop_body(f"global{idx}", once=True)
+    return loop_body(f"global{idx}", once=True, shared_grad=True)
 
 
 def token_nll(logits, labels, mask=None):

@@ -193,6 +193,24 @@ FAMILY_PINNED = {
         "dec_layer/self_attn/mix": MIX[True],
         "enc_layer/layernorm": ({}, {"mul": 1, "reduce_sum": 2}),
         "enc_layer/self_attn/mix": MIX[True], "loss": LOSS}),
+    # hymba's Mamba: the reference's recompute of its checkpointed chunk
+    # body (``mul``, ``add``, ``exp``) against the residuals of
+    # ``softplus``'s JVP, which the port computes in the forward also under
+    # ``remat`` (``sub``, ``exp``; ``models.common._Softplus``). Without
+    # remat each global layer's chunk is recomputed on its own
+    ("hymba-1.5b", False): ((1155, 1131), {
+        "global_layer/attn/mix": ({"add_any": 2, "convert_element_type": 3,
+                                   "mul": 2}, {"add": 2, "reduce_sum": 2}),
+        "global_layer/mamba": ({"add": 2, "exp": 2, "mul": 6}, {}),
+        "layer/attn/mix": MIX[False],
+        "layer/mamba": ({"add": 1, "exp": 1, "mul": 3}, {}),
+        "loss": LOSS}),
+    ("hymba-1.5b", True): ((1129, 1118), {
+        "global_layer/attn/mix": MIX[True],
+        "global_layer/mamba": ({"add": 1, "mul": 2}, {"exp": 1, "sub": 2}),
+        "layer/attn/mix": MIX[True],
+        "layer/mamba": ({"add": 1, "mul": 2}, {"exp": 1, "sub": 2}),
+        "loss": LOSS}),
 }
 
 
@@ -323,10 +341,24 @@ def test_backward_sites_do_not_depend_on_the_thread():
 @pytest.mark.parametrize("which", ["memtrace", "profile_trajectory",
                                    "profile_counts"])
 def test_profiling_a_backward_pass_raises(which):
+    """A backward pass inside the profiled function raised
+    ``NotImplementedError`` until the profilers followed it; now each
+    profiles it under the forward op's scope: mem-mode and trajectories
+    tally the backward ops (``transpose(jvp())/mlp``) and keep the
+    truncated lane ``truncate``'s, the counters charge them to ``mlp``
+    (``tests/test_torch_profile_grad.py`` holds all three to the
+    reference)."""
     w, x = _wx()
     pol = tc.TruncationPolicy.scoped("mlp", "e5m2")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        getattr(tc, which)(_grad, pol)(w, x)
+    if which == "profile_counts":
+        grad = tc.profile_counts(_grad, pol)(w, x).by_scope[("mlp", "e5m2")]
+        fwd = tc.profile_counts(_loss, pol)(w, x).by_scope[("mlp", "e5m2")]
+        assert grad > fwd
+        return
+    g, rep = getattr(tc, which)(_grad, pol)(w, x)
+    assert torch.equal(g, tc.truncate(_grad, pol)(w, x))
+    locs = getattr(rep, "totals", rep).locations
+    assert any(loc.startswith("transpose(jvp())/mlp ") for loc in locs)
 
 
 def test_loop_trips_keep_their_sites_through_remat_and_constant_carries():

@@ -218,3 +218,25 @@ def test_dryrun_cell_on_meta_tensors(tmp_path):
     assert "collectives" not in rec
     rows = roofline.main(["--dir", str(tmp_path)])
     assert rows[0]["t_collective_s"] is None
+
+
+def test_dryrun_train_cell_counts_the_train_step(tmp_path, monkeypatch):
+    """A train cell counts the whole train step, as the reference's dry-run
+    lowers it: value and gradients of the loss and the AdamW update, on
+    meta tensors. Its FLOPs stand over the loss forward's by the backward's
+    share: 6 N D over 2 N D is 3 without recompute; with ``remat`` the
+    layers are recomputed and, inside that, the attention's chunks once
+    more (5.26 here). The smoke configuration at ``train_4k``'s shape keeps
+    the count to seconds."""
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda arch: get_config(arch, "smoke"))
+    rec = dryrun.run_cell("h2o-danube-1.8b", "train_4k", False,
+                          out_dir=str(tmp_path))
+    assert rec["ok"] and rec["counts_of"] == "train step"
+    assert "counts_note" not in rec
+    model, _, fn, args, _ = dryrun.abstract_cell(
+        "h2o-danube-1.8b", dryrun.SHAPES["train_4k"], False)
+    params, _, batch, _ = args
+    fwd = dryrun.meta_counts(model.loss, (params, batch))[0]
+    assert 4.0 < rec["jaxpr_flops"] / fwd < 6.0
