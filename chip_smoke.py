@@ -6,7 +6,7 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's fourteen paths:
+plain PyTorch version on the card, then drives the port's fifteen paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
@@ -104,7 +104,20 @@ plain PyTorch version on the card, then drives the port's fourteen paths:
     the dynamic quantizer's fault channel, caught, the row widened, one
     rollback, finite to the end with one enumeration), a fault-free
     ``GuardedTrainer`` bit-equal to the unguarded hot-swap step, and the
-    guarded Sod loop recovering from overflow faults —
+    guarded Sod loop recovering from overflow faults;
+  * the sharded path — parameters that stay DTensor shards, on two gloo
+    ranks of the one card, after the guard path: glm4-9b at full width, 2
+    of its 40 layers, served tensor-parallel on (1, 2) under
+    ``SERVE_PARAM_RULES`` through ``launch.serve`` (8 ragged requests, 4
+    slots, ``**/mlp`` e5m7), each rank half of every sharded leaf,
+    teacher-forced logits against the one-rank engine's, static launches =
+    ticks x matched site executions, the host syncs of a tick;
+    h2o-danube-1.8b at full width, 2 layers, 1 x 2048 a data rank, trained
+    on (1, 2) (TP, the reference's smoke mesh) and, with ``--phases
+    sharded_fsdp``, on (2, 1) (FSDP): three plain, truncated and
+    hot-swapped steps against one rank's, the truncated step bit for bit
+    ``impl='ref'``, every sharded leaf of the parameters, moments and
+    master a rank's half —
 
 and times the kernels and the forward. Nothing is caught: any failed phase
 ends the run with a traceback and a non-zero exit code.
@@ -119,18 +132,21 @@ last line is ``{"ok": true, "device": {...}}``.
 Options (for debugging at a smaller size; the defaults are the full run):
 ``--layers N`` cuts the depth (the search, mesh and artifact paths' is 4,
 the mem and trajectory paths' 2, the serve path's 4, the fp8 path's 12, the
-train and grad profile paths' 8 and the guard path's 2 unless given; on the
-models path, olmoe-1b-7b's, 8 unless given),
+train and grad profile paths' 8, the guard path's 2 and the sharded path's
+2 served and 2 trained unless given; on the models path, olmoe-1b-7b's, 8
+unless given),
 ``--seq S`` the sequence length of the
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,mem_path,traj_path,fused_path,small_ref,
 times,reconcile,search_path,mesh_path,apps_path,artifact_path,models_path,
-serve_path,train_path,grad_profile_path,fp8_path,guard_path`` (``kernels``
+serve_path,train_path,grad_profile_path,fp8_path,guard_path,sharded_path``
+(``kernels``
 includes the fp8
 kernel's checks, ``times`` its times; ``fp8_times`` alone times it)
 or adds
-``fp8_probe`` (the fp8 kernel's design step 0: which tensor-core route holds
+``sharded_fsdp`` (the sharded path's training on the FSDP mesh (2, 1)
+too), ``fp8_probe`` (the fp8 kernel's design step 0: which tensor-core route holds
 its error bound, from a library of its own, ``csrc/fp8_mma_probe.cu``),
 ``profile`` (device time by kernel name for one plain and one swept forward,
 a decode tick, a train step; ``profile_train`` the train step alone),
@@ -4164,6 +4180,428 @@ def phase_guard_path(device, layers):
     return counts
 
 
+# the sharded path: parameters that stay DTensor shards on two ranks
+# --------------------------------------------------------------------------
+
+SHARDED_SERVE_ARGV = ["--arch", "glm4-9b", "--production", "--batch", "4",
+                      "--requests", "8", "--prompt-len", "32",
+                      "--new-tokens", "16", "--max-seq", "128",
+                      "--policy", SERVE_POLICY, "--device", "cuda"]
+SHARDED_SERVE_LAYERS = 2
+SHARDED_TRAIN_LAYERS = 2
+SHARDED_STEPS = 3       # train steps of each kind on each mesh
+SHARDED_FORCED = 8      # teacher-forced decode steps
+# the meshes trained on: (1, 2), the reference's smoke mesh, by default;
+# (2, 1) with ``--phases sharded_fsdp``
+SHARDED_MESHES = ((1, 2),)
+FSDP_MESH = (2, 1)
+
+
+def local_bytes(tree):
+    """Bytes this rank holds of ``tree``'s tensors (a DTensor's local
+    shard)."""
+    from repro_torch.distributed import sharding as shd
+    return sum(shd.local_parts(t)[0].numel() * t.element_size()
+               for t in torch.utils._pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def global_bytes(tree):
+    return sum(t.numel() * t.element_size()
+               for t in torch.utils._pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def layout_bytes(params, shardings=None):
+    """Per leaf of sharded parameters (or of a tree laid out as them):
+    whether a rule shards it, its local and global bytes; the replicated
+    remainder named. With ``shardings`` (the rules' ``NamedSharding`` of
+    each leaf), ``as_rules``: whether the leaves the rules split over an
+    axis of more than one rank are exactly the sharded ones."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.optim import tree as T
+
+    def name(path):
+        return "/".join(k.strip("[]'.") for k in map(str, path))
+
+    def split(placements, mesh):
+        # an axis of one rank splits nothing
+        return any(p.is_shard() and mesh.size(md) > 1
+                   for md, p in enumerate(placements))
+    sharded, replicated = [], {}
+    for path, t in T.leaves_with_path(params):
+        mine = shd.local_parts(t)[0].numel() * t.element_size()
+        whole = t.numel() * t.element_size()
+        if split(t.placements, t.device_mesh):
+            sharded.append((mine, whole))
+        else:
+            replicated[name(path)] = whole
+    out = dict(sharded_local=sum(m for m, _ in sharded),
+               sharded_global=sum(w for _, w in sharded),
+               sharded_leaves=len(sharded),
+               halves=all(2 * m == w for m, w in sharded),
+               replicated=replicated,
+               replicated_bytes=sum(replicated.values()))
+    if shardings is not None:
+        whole_by_rules = {name(path) for path, ns in
+                          T.leaves_with_path(shardings)
+                          if not split(ns.placements(), ns.mesh)}
+        out["as_rules"] = whole_by_rules == set(replicated)
+    return out
+
+
+def host_syncs(fn):
+    """``fn()``, the host synchronisations it made on this thread (the
+    card's sync debug mode, set to warn) and where each was made: the
+    innermost line of the port (or of this script) on the stack."""
+    import traceback
+    import warnings
+    where = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "repro_torch" in f.filename
+                or f.filename.endswith("chip_smoke.py")]
+        f = ours[-1] if ours else None
+        where.append(f"{os.path.relpath(f.filename)}:{f.lineno}" if f
+                     else f"{filename}:{lineno}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, len(where), where
+
+
+def rank_note(*what):
+    """A progress line on stderr from rank 0 of a spawned group."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print("[sharded_path]", *what, file=sys.stderr, flush=True)
+
+
+def sharded_serve(layers):
+    """glm4-9b at full width, ``layers`` deep, served by ``launch.serve``
+    on the (1, 2) mesh of both ranks under ``SERVE_PARAM_RULES``; the same
+    model on this rank alone beside it."""
+    from repro_torch import kernels
+    from repro_torch.core import truncate
+    from repro_torch.core.policy import parse_policy
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import serve
+    from repro_torch.serving import Engine
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        eng = serve.main(SHARDED_SERVE_ARGV, n_layers=layers)
+    rank_note("served", eng.ticks, "ticks in", round(eng.served_seconds, 1),
+              "s")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    cli_s = time.perf_counter() - t0
+    model, params, cfg = eng.model, eng.params, eng.model.cfg
+    policy = parse_policy(SERVE_POLICY)
+    done = eng.run()
+    mesh = torch.utils._pytree.tree_leaves(params)[0].device_mesh
+    with torch.no_grad():
+        cache = model.place_cache(model.init_cache(SERVE_BATCH, SERVE_SEQ, device="cuda"),
+                                  mesh)
+        per_tick = matched_executions(
+            model.decode_step, policy,
+            (params, cache, torch.zeros(SERVE_BATCH, dtype=torch.int32,
+                                        device="cuda")))
+    res = dict(ticks=eng.ticks, requests=len(done),
+               statuses=sorted({r.status for r in done.values()}),
+               tokens=sum(len(r.out_tokens) for r in done.values()),
+               served_seconds=eng.served_seconds, command_seconds=cli_s,
+               matched_site_executions_per_tick=per_tick,
+               static_launches=counts["quantize_em_static"],
+               dynamic_launches=counts["quantize_em_dynamic"],
+               cache_sizes=eng.cache_sizes(),
+               mesh=dict(shd.mesh_shape(mesh)),
+               bytes=layout_bytes(params, shd.param_shardings(
+                   model.param_defs(), mesh, shd.SERVE_PARAM_RULES)))
+
+    # the same draws on this rank alone; teacher-forced: the first
+    # requests' prompts, then the one-rank step's own tokens, through both
+    # decode steps, logits against logits
+    plain = model.init(seed=0, device="cuda")
+    res["one_rank_param_bytes"] = global_bytes(plain)
+    res["rank_param_bytes"] = local_bytes(params)
+    prompts = serve.workload(cfg.vocab, SERVE_BATCH, 32)
+    step_sh = truncate(model.decode_step, policy)
+    step_one = truncate(model.decode_step, policy)
+    c_sh = cache
+    c_one = model.init_cache(SERVE_BATCH, SERVE_SEQ, device="cuda")
+    tok = torch.tensor([p[0] for p in prompts], dtype=torch.int32,
+                       device="cuda")
+    worst = scale = 0.0
+    agree = 0
+    with torch.no_grad():
+        for t in range(SHARDED_FORCED):
+            l_sh, c_sh = step_sh(params, c_sh, tok)
+            l_one, c_one = step_one(plain, c_one, tok)
+            l_sh = shd.gather(l_sh)
+            worst = max(worst, float((l_sh - l_one).abs().max()))
+            scale = max(scale, float(l_one.abs().max()))
+            nxt = l_one.argmax(-1)
+            agree += int((l_sh.argmax(-1) == nxt).sum())
+            tok = torch.tensor([p[t + 1] if t + 1 < len(p) else int(n)
+                                for p, n in zip(prompts, nxt.tolist())],
+                               dtype=torch.int32, device="cuda")
+    res["forced"] = dict(steps=SHARDED_FORCED, max_abs_diff=worst,
+                         max_abs_logit=scale, ratio=worst / scale,
+                         argmax_agree=agree,
+                         argmax_total=SHARDED_FORCED * SERVE_BATCH)
+    one = Engine(model, plain, batch_size=SERVE_BATCH, max_seq_len=SERVE_SEQ,
+                 policy=policy)
+
+    # a tick's time and its host synchronisations, sharded and one-rank;
+    # the debug mode turned on and off once around nothing first (what it
+    # reports then is no tick's)
+    _, res["host_syncs_idle"], res["host_syncs_at_idle"] = host_syncs(
+        lambda: None)
+    for name, e in (("sharded", Engine(model, params, batch_size=SERVE_BATCH,
+                                       max_seq_len=SERVE_SEQ,
+                                       policy=policy)),
+                    ("one_rank", one)):
+        with torch.no_grad():
+            res[f"ms_per_tick_{name}"] = ms_per_tick(e, cfg.vocab)
+            torch.cuda.synchronize()
+            (_, res[f"host_syncs_per_tick_{name}"],
+             res[f"host_syncs_at_{name}"]) = host_syncs(e.step)
+    del plain, one, eng, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_train(layers, meshes):
+    """h2o-danube-1.8b at full width, ``layers`` deep, bf16 with the f32
+    master, 1 x 2048 tokens a data rank, ``remat``: three steps of each
+    kind on each of ``meshes`` (of both ranks), and on this rank alone on
+    the same global batch."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import parse_policy
+    from repro_torch.data import DataConfig, Pipeline, to_device
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_opt_state,
+                                   make_hotswap_train_step, make_train_step)
+
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=layers)
+    model = Model(cfg)
+    mlp = parse_policy(TRAIN_POLICY)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR))
+
+    def batch_of(data_ranks):
+        return to_device(Pipeline(DataConfig(
+            seq_len=TRAIN_SEQ, global_batch=data_ranks,
+            vocab=cfg.vocab)).next(), device="cuda")
+
+    def steps_of(kind, params, b, impl="auto"):
+        if kind == "hotswap":
+            fn, index = make_hotswap_train_step(model, tc, mlp, params, b)
+            return fn, (fn.device_table(index.table_for(mlp)),)
+        return make_train_step(model, TrainConfig(
+            optimizer=tc.optimizer, policy=mlp if kind == "policy" else None,
+            policy_impl=impl)), ()
+
+    def run(kind, params, b, n=SHARDED_STEPS, impl="auto", after=None):
+        """``n`` steps of ``kind``: (params, state, losses, ms a step,
+        enumerations); ``after[i]`` keeps the parameters after step i."""
+        fn, extra = steps_of(kind, params, b, impl)
+        o = init_opt_state(model, params, tc, device="cuda")
+        losses, ms = [], []
+        p = params
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = fn(p, o, b, i, *extra)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rank_note("train", kind, impl, "step", i, round(ms[-1]), "ms",
+                      losses[-1])
+            if after is not None:
+                after.append(p)
+        traces = (fn.sweep.n_traces if kind == "hotswap"
+                  else getattr(getattr(fn, "grad_fn", None), "n_traces", 0))
+        return p, o, losses, ms, traces
+
+    res = {}
+    for shape in meshes:
+        key = "x".join(map(str, shape))
+        batch = batch_of(shape[0])
+        one = res["one_rank_" + key] = {}
+        plain = model.init(seed=0, device="cuda")
+        for kind in ("plain", "policy", "hotswap"):
+            p, o, losses, ms, _ = run(kind, plain, batch)
+            one[kind] = dict(losses=losses, ms=ms)
+        one["state_bytes"] = global_bytes((p, o["m"], o["v"], o["master"]))
+        del p, o, plain
+        rank_note("train on", shape)
+        mesh = device_mesh(shape, ("data", "model"), device="cuda")
+        sp = model.place_params(model.init(seed=0, device="cuda"), mesh)
+        sb = {k: shd.place(v, shd.batch_sharding(mesh))
+              for k, v in batch.items()}
+        out = {}
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        for kind in ("plain", "policy", "hotswap"):
+            after = []
+            p, o, losses, ms, traces = run(kind, sp, sb, after=after)
+            out[kind] = dict(losses=losses, ms=ms, n_traces=traces)
+            if kind == "policy":
+                # its first step, the kernel's, against the plain version's
+                # on the same shards
+                ref = run(kind, sp, sb, n=1, impl="ref")
+                out["cuda_vs_ref_mismatches"] = tree_mismatches(
+                    [shd.local_parts(t)[0] for t in
+                     torch.utils._pytree.tree_leaves(after[0])],
+                    [shd.local_parts(t)[0] for t in
+                     torch.utils._pytree.tree_leaves(ref[0])])
+                out["cuda_vs_ref_loss"] = [losses[0], ref[2][0]]
+            del after
+        after = kernels.launch_counts()
+        out["launches"] = {k: after[k] - before[k] for k in after}
+        out["rank_state_bytes"] = local_bytes((p, o["m"], o["v"],
+                                               o["master"]))
+        rules = shd.param_shardings(model.param_defs(), mesh)
+        out["state_layout"] = {k: layout_bytes(v, rules) for k, v in (
+            ("params", p), ("m", o["m"]), ("v", o["v"]),
+            ("master", o["master"]))}
+        res[key] = out
+        del p, o, sp
+        torch.cuda.empty_cache()
+    return res
+
+
+def sharded_rank(rank, world, store, out, serve_layers, train_layers,
+                 meshes):
+    """One of the two ranks of ``sharded_path``, both on ``cuda:0`` over
+    gloo (NCCL refuses two ranks on one device). Writes ``rank<r>.json``."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        res = {"serve": sharded_serve(serve_layers)}
+        res["serve_seconds"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        res["train"] = sharded_train(train_layers, meshes)
+        res["train_seconds"] = time.perf_counter() - t1
+        res["launches"] = kernels.launch_counts()
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_path(layers, meshes):
+    """Sharded parameters on two ranks of the one card (gloo, the
+    ``mesh_rank`` pattern): glm4-9b served tensor-parallel on (1, 2)
+    (``SERVE_PARAM_RULES``, ``SHARDED_SERVE_LAYERS`` deep unless
+    ``--layers``), and h2o-danube-1.8b trained on ``meshes``
+    (``DEFAULT_PARAM_RULES``, ``SHARDED_TRAIN_LAYERS`` deep), each beside
+    the same model on one rank. Each rank holds half of every leaf the
+    rules split over an axis of two, the rest whole, in the parameters,
+    the moments and the master; teacher-forced logits within
+    ``LOGIT_TOL`` of the one-rank engine's; the static quantizer's
+    launches a rank = ticks x matched site executions; a tick's host
+    syncs on the calling thread: the one read-back, and on a mesh the
+    gather of the vocab-sharded logits before it; the train steps' losses
+    within 1e-3 of one rank's, the truncated step bit-equal to
+    ``impl='ref'`` on the same shards; one enumeration a hot-swap step. A
+    collective that cannot run raises in its rank, and this call raises."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sharded_path_")
+    world = 2
+    try:
+        mp.start_processes(sharded_rank, args=(
+            world, os.path.join(tmp, "store"), tmp,
+            layers or SHARDED_SERVE_LAYERS, layers or SHARDED_TRAIN_LAYERS,
+            meshes), nprocs=world, join=True, start_method="spawn")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    for i, r in enumerate(ranks):
+        sv, tr = r["serve"], r["train"]
+        b = sv["bytes"]
+        check(sv["requests"] == 8 and sv["statuses"] == ["ok"]
+              and sv["mesh"] == {"data": 1, "model": 2} and b["halves"]
+              and b["as_rules"] and b["sharded_local"] * 2
+              == b["sharded_global"]
+              and sv["rank_param_bytes"] == b["sharded_local"]
+              + b["replicated_bytes"]
+              and sv["one_rank_param_bytes"] == b["sharded_global"]
+              + b["replicated_bytes"], "sharded serve: layout", i, sv)
+        check(sv["static_launches"] == sv["ticks"]
+              * sv["matched_site_executions_per_tick"] > 0
+              and sv["dynamic_launches"] == 0,
+              "sharded serve: launches", i, sv)
+        check(sv["forced"]["ratio"] <= LOGIT_TOL,
+              "sharded serve: teacher-forced logits", i, sv["forced"])
+        check(sv["host_syncs_per_tick_one_rank"] == 1
+              and sv["host_syncs_per_tick_sharded"] == 1,
+              "sharded serve: a tick's host syncs", i, sv)
+        for shape in meshes:
+            key = "x".join(map(str, shape))
+            t, one = tr[key], tr["one_rank_" + key]
+            for kind in ("plain", "policy", "hotswap"):
+                want = one[kind]["losses"]
+                check(len(t[kind]["losses"]) == SHARDED_STEPS
+                      and all(abs(a - w) <= 1e-3 * abs(w) for a, w in
+                              zip(t[kind]["losses"], want)),
+                      "sharded train: losses", i, shape, kind, t[kind], want)
+            check(t["hotswap"]["n_traces"] == 1
+                  and t["policy"]["n_traces"] == 1
+                  and t["cuda_vs_ref_mismatches"] == 0
+                  and t["cuda_vs_ref_loss"][0] == t["cuda_vs_ref_loss"][1]
+                  and t["launches"]["quantize_em_static"] > 0
+                  and t["launches"]["quantize_em_dynamic"] > 0,
+                  "sharded train: traces, kernel against plain", i, shape, t)
+            lay = t["state_layout"]
+            check(all(v["halves"] and v["as_rules"] and v["sharded_leaves"]
+                      for v in lay.values())
+                  and t["rank_state_bytes"] == sum(
+                      v["sharded_local"] + v["replicated_bytes"]
+                      for v in lay.values())
+                  and one["state_bytes"] == sum(
+                      v["sharded_global"] + v["replicated_bytes"]
+                      for v in lay.values()),
+                  "sharded train: state layout", i, shape, lay)
+    emit("sharded_path", world=world, backend="gloo", device="cuda:0",
+         meshes=[list(m) for m in meshes],
+         serve=[r["serve"] for r in ranks],
+         train=[r["train"] for r in ranks],
+         rank_seconds=[[r["serve_seconds"], r["train_seconds"]]
+                       for r in ranks],
+         peak_gb=[r["peak_gb"] for r in ranks], launches=counts,
+         seconds=round(time.perf_counter() - t0, 1))
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None)
@@ -4176,7 +4614,7 @@ def main():
                                         "artifact_path,models_path,"
                                         "serve_path,train_path,"
                                         "grad_profile_path,fp8_path,"
-                                        "guard_path")
+                                        "guard_path,sharded_path")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -4245,6 +4683,10 @@ def main():
         counts["fp8_dot"] = by_path["fp8_path"]["fp8_dot"]
     if "guard_path" in phases:
         by_path["guard_path"] = phase_guard_path(device, args.layers)
+    if "sharded_path" in phases:
+        by_path["sharded_path"] = phase_sharded_path(
+            args.layers, SHARDED_MESHES
+            + ((FSDP_MESH,) if "sharded_fsdp" in phases else ()))
     if "train_lr" in phases:
         phase_train_lr(device, args.layers)
     if "small_ref" in phases:
@@ -4321,7 +4763,9 @@ def main():
                                    "quantize_em_dynamic"),
                     "grad_profile_path": ("quantize_em_static",),
                     "fp8_path": ("fp8_dot",),
-                    "guard_path": ("quantize_em_dynamic",)}
+                    "guard_path": ("quantize_em_dynamic",),
+                    "sharded_path": ("quantize_em_static",
+                                     "quantize_em_dynamic")}
     for path, names in path_kernels.items():
         if path in phases:
             check(all(by_path[path][n] > 0 for n in names), path, summary)

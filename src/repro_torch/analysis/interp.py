@@ -60,6 +60,7 @@ from repro_torch.analysis.domain import (
     AbsVal, Aval, Call, from_concrete, join, leq, top_for_dtype, transfer,
 )
 from repro_torch.core import interpreter as _interp
+from repro_torch.distributed import sharding as _shd
 
 RecordKey = Tuple[str, int, int]
 
@@ -474,8 +475,11 @@ def analyze(fn, args: Sequence = (), kwargs: Optional[dict] = None,
     (range facts then come only from constants and structure). The run
     rounds nothing and launches no quantizer; its keys line up with the
     ``SiteIndex`` an enumeration of the same call under the same grad mode
-    gives."""
+    gives. DTensor inputs are gathered: the walk is the global
+    program's."""
     kwargs = dict(kwargs or {})
+    if _shd.any_dtensor((tuple(args), kwargs)):
+        args, kwargs = _shd.gather_tree((tuple(args), kwargs))
     mode = _AnalyzeMode(warm_iters)
     leaves = [x for x in pytree.tree_leaves((tuple(args), kwargs))
               if isinstance(x, torch.Tensor)]

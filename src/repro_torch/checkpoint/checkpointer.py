@@ -21,6 +21,12 @@ does not have: a bf16 leaf is stored as its ``uint16`` bit pattern, its dtype
 recorded in the manifest (``dtypes``), and restored bit for bit.
 ``restore(shardings=...)`` re-shards onto the current mesh (elastic): each
 leaf becomes a DTensor laid out per its ``NamedSharding``.
+
+A sharded tree (DTensor leaves) is saved as its global values: every rank
+calls ``save`` and takes part in gathering each leaf, and rank 0 writes.
+``restore`` lays a leaf out as its template's DTensor is (or as
+``shardings=`` says), so a sharded run resumes from the checkpoint of a
+sharded or an unsharded one.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as _shd
 from repro_torch.optim import tree as T
 
 
@@ -50,7 +57,7 @@ def _to_numpy(t) -> tuple:
     """(numpy array, dtype name) of one leaf, on the host."""
     if not isinstance(t, torch.Tensor):
         t = torch.as_tensor(t)
-    t = t.detach().cpu()
+    t = _shd.gather(t.detach()).cpu()    # a DTensor's global value
     bits = _AS_BITS.get(t.dtype)
     if bits is not None:
         return t.view(bits[1]).numpy().view(bits[0]), str(t.dtype)
@@ -77,6 +84,11 @@ def _artifact_record(policy_artifact):
             "digest": policy_artifact.digest}
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep_k: int = 3,
                  async_save: bool = True):
@@ -94,7 +106,11 @@ class Checkpointer:
         digest recorded) or a plain ``{name, version, digest}`` dict --
         recorded in ``manifest.json`` so a restored run can re-load (and
         hash-verify) the exact policy it was training under."""
-        flat, dtypes = _flatten(tree)   # to the host on the caller's thread
+        # to the host on the caller's thread; DTensor leaves are gathered,
+        # a collective every rank makes, and rank 0 alone writes them
+        flat, dtypes = _flatten(tree)
+        if _shd.any_dtensor(tree) and _rank() != 0:
+            return
         manifest = {
             "step": int(step),
             "treedef": T.structure(tree),
@@ -176,7 +192,9 @@ class Checkpointer:
                 if saved == str(dt):
                     t = t.view(signed).view(dt)
             if isinstance(like, torch.Tensor):
-                return t.to(device=like.device, dtype=like.dtype)
+                t = t.to(device=like.device, dtype=like.dtype)
+                if _shd._is_dtensor(like):
+                    t = _shd.place_as(t, like)
             return t
 
         tree = T.unflatten(template, [

@@ -105,13 +105,23 @@ def _mesh_key(mesh, in_shardings, *extra) -> tuple:
     return (mesh, str(tree), tuple(leaves)) + extra
 
 
+def _checked_inputs(mesh, in_shardings, args, kwargs):
+    """``(args, kwargs)`` as laid out, ``in_shardings`` checked against
+    them (jit's prefix convention): DTensor leaves stay shards, and the
+    program runs on them (``truncate``, ``truncate_sweep``)."""
+    if mesh is not None or in_shardings is not None:
+        _shd.flatten_arg_shardings(mesh, in_shardings, args, kwargs)
+    return args, kwargs
+
+
 def _global_inputs(mesh, in_shardings, args, kwargs):
     """``(args, kwargs)`` as the global program reads them: ``in_shardings``
-    checked against the inputs (jit's prefix convention), DTensor leaves
-    gathered to their full tensors."""
-    if mesh is None and in_shardings is None:
+    checked against the inputs, DTensor leaves gathered to their full
+    tensors (the profilers, whose reports are per location of the global
+    program)."""
+    args, kwargs = _checked_inputs(mesh, in_shardings, args, kwargs)
+    if not _shd.any_dtensor((tuple(args), kwargs)):
         return args, kwargs
-    _shd.flatten_arg_shardings(mesh, in_shardings, args, kwargs)
     return _shd.gather_tree((tuple(args), kwargs))
 
 
@@ -174,7 +184,7 @@ def truncate(fn: Callable, policy: TruncationPolicy, *, impl: str = "auto",
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        args, kwargs = _global_inputs(mesh, in_shardings, args, kwargs)
+        args, kwargs = _checked_inputs(mesh, in_shardings, args, kwargs)
         plan = _per_signature(wrapped, cache, suffix, args, kwargs, dict)
         return interpreter.run_quantized(fn, args, kwargs, policy, impl, plan,
                                          native_fp8=native_fp8)
@@ -323,7 +333,7 @@ def truncate_sweep(fn: Callable, site_policy: TruncationPolicy, *,
               _mesh_key(mesh, in_shardings, batch_axis))
 
     def wrapped(*args, **kwargs) -> SweepHandle:
-        args, kwargs = _global_inputs(mesh, in_shardings, args, kwargs)
+        args, kwargs = _checked_inputs(mesh, in_shardings, args, kwargs)
         leaves, in_tree = pytree.tree_flatten((args, kwargs))
         key = _signature_key(in_tree, leaves, suffix)
         index = wrapped._cache.get(key) if cache else None

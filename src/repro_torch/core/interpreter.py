@@ -114,6 +114,7 @@ from repro_torch.core.policy import (
 # the module, not its names: the quantizer imports core.formats, so either
 # package may be the first one imported
 from repro_torch.core.formats import parse_format
+from repro_torch.distributed import sharding as _shd
 from repro_torch.kernels import fp8_dot as _fp8
 from repro_torch.kernels import fused as _fused
 from repro_torch.kernels.quantize_em import ops as _q
@@ -262,6 +263,7 @@ def prim_name(func, args=()) -> Tuple[str, bool]:
 
 
 _POW_SCALAR = torch.ops.aten.pow.Tensor_Scalar
+_MASKED_FILL = torch.ops.aten.masked_fill_.Scalar
 _DETACH = torch.ops.aten.detach.default
 _MISS = object()
 
@@ -297,10 +299,19 @@ class _Local(threading.local):
     frames: Optional[List[_Frame]] = None
     recompute = False          # inside a ``remat`` region's recompute
     on_step = None
+    walks: Tuple = ()          # the ``_Grads`` of the walks entered here
+
+
+def _absorb_collective():
+    """The end of a ``sharding.collective()`` region: its autograd node is
+    claimed by no op of the innermost walk on this thread."""
+    if _tls.walks:
+        _tls.walks[-1].absorb()
 
 
 _tls = _Local()
 _TRIPS = itertools.count()
+_shd.after_collective.append(_absorb_collective)
 
 
 def _frames() -> List[_Frame]:
@@ -441,6 +452,12 @@ _sequence_nr = torch.autograd._get_sequence_nr
 # transpose accumulates cotangents with ``add_any``, never ``add``
 _BACKWARD_PRIM = {"add": "add_any", "scatter": "scatter-add"}
 
+# DTensor's own autograd nodes: data movement between layouts, whose
+# backward ops are no op of the program's
+_COLLECTIVE_NODES = frozenset({"RedistributeBackward",
+                               "_FromTorchTensorBackward",
+                               "_ToTorchTensorBackward"})
+
 
 class _Grads:
     """Where each op of one transformed run lies, backward ops included.
@@ -475,9 +492,12 @@ class _Grads:
     """
 
     __slots__ = ("seq0", "last", "root", "fwd", "bwd", "orphan", "node",
-                 "claimed", "saved", "pending")
+                 "claimed", "saved", "pending", "sharded")
 
-    def __init__(self):
+    def __init__(self, sharded: bool = True):
+        # whether DTensors may reach the run: only then are DTensor's data
+        # movement and autograd nodes looked for
+        self.sharded = sharded
         self.seq0 = self.last = _sequence_nr()
         self.root = _frames()[0]
         self.fwd: Dict[int, Tuple[_Frame, int]] = {}
@@ -504,10 +524,19 @@ class _Grads:
         autograd's saved-tensor hooks issue once per saved tensor: more
         where more inputs need gradients, so it would shift the positions
         of one loop trip against another) gets position -1: it never holds
-        a site, and claims no node."""
+        a site, and claims no node. An op of DTensor's data movement (in a
+        ``sharding.collective()`` region, or in the backward of one of
+        DTensor's own nodes) gets no frame: it is no op of the program, and
+        a sharded run keeps the unsharded run's sites."""
         recompute = _tls.recompute
         node = self.node = None if recompute else _current_node()
         self.claimed = None
+        if self.sharded:
+            if _shd.in_collective():
+                self.absorb()
+                return None, -1, False
+            if node is not None and node.name() in _COLLECTIVE_NODES:
+                return None, -1, True
         if node is None:
             frames = _frames()
             if frames[0] is not self.root and not recompute:
@@ -545,6 +574,13 @@ class _Grads:
                 frame.origin = (ff.path, fpos)
             self.bwd[seq] = frame
         return self._next(frame, counted) + (True,)
+
+    def absorb(self):
+        """Autograd nodes made so far on the run's thread are claimed by no
+        op (a ``collective()`` region's ``Redistribute`` node, or one
+        DTensor's dispatch makes below the walk)."""
+        if _frames()[0] is self.root:
+            self.last = _sequence_nr()
 
     @staticmethod
     def _next(frame: _Frame, counted: bool) -> Tuple[_Frame, int]:
@@ -628,15 +664,19 @@ def _formulas_walk() -> bool:
 class _ZeroCotangents(torch.autograd.Function):
     @staticmethod
     def forward(ctx, out, *xs):
-        ctx.like = [(x.shape, x.dtype, x.device) for x in xs]
+        ctx.like = [(x.shape, x.dtype, x.device,
+                     x.device_mesh if _shd._is_dtensor(x) else None)
+                    for x in xs]
         return out.view_as(out)
 
     @staticmethod
     def backward(ctx, g):
         if not _formulas_walk():
             return (g,) + (None,) * len(ctx.like)
-        return (g,) + tuple(torch.zeros(s, dtype=d, device=v)
-                            for s, d, v in ctx.like)
+        # on a mesh, the zeros every rank holds whole
+        return (g,) + tuple(
+            _shd.replicate_on(mesh, torch.zeros(s, dtype=d, device=v))
+            for s, d, v, mesh in ctx.like)
 
 
 def zero_cotangents(out, *xs):
@@ -926,6 +966,10 @@ def _is_float(v) -> bool:
 def _maybe_quantize(val, rule: TruncationRule, impl: str):
     if not _is_float(val):
         return val
+    return _shd.map_local(lambda v: _quantize_rule(v, rule, impl), val)
+
+
+def _quantize_rule(val, rule: TruncationRule, impl: str):
     q = _q.quantize(val, rule.fmt, impl=impl)
     if rule.mask is not None:
         q = torch.where(rule.mask(val), q, val)
@@ -964,14 +1008,37 @@ class _WalkMode(TorchDispatchMode):
     formulas = True
 
     def __enter__(self):
-        self.grads = _Grads()
+        # a DTensor needs a process group: without one the walk skips
+        # DTensor's bookkeeping
+        self.sharded = _shd.dtensors_possible()
+        self.grads = _Grads(self.sharded)
+        _tls.walks += (self.grads,)
         return super().__enter__()
 
+    def __exit__(self, *exc):
+        _tls.walks = _tls.walks[:-1]
+        return super().__exit__(*exc)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        prim, mutates = prim_name(func, args)
+        if not self.sharded:
+            return self._dispatch(func, args, kwargs)
+        seq = _sequence_nr()
+        try:
+            return self._dispatch(func, args, kwargs)
+        finally:
+            # DTensor's dispatch of an op (a redistribution, ``from_local``)
+            # may make autograd nodes of its own below the walk: no later
+            # op claims them
+            if _sequence_nr() != seq:
+                self.grads.absorb()
+
+    def _dispatch(self, func, args, kwargs):
         grads = self.grads
         frame, pos, backward = grads.site(func is not _DETACH)
         kwargs = kwargs or {}
+        if frame is None:              # DTensor's data movement: no site
+            return func(*args, **kwargs)
+        prim, mutates = prim_name(func, args)
         if backward:
             prim = _BACKWARD_PRIM.get(prim, prim)
             node = grads.node
@@ -987,7 +1054,11 @@ class _WalkMode(TorchDispatchMode):
             grads.saved[grads.claimed] = args[0]
         args, kwargs, routed = self.on_inputs(frame, pos, prim, func, args,
                                               kwargs)
-        out = self.run(func, args, kwargs, mutates)
+        if (func is _MASKED_FILL and self.sharded and args[2] == 0
+                and _shd.is_partial(args[0])):
+            out = _shd.masked_zero_(args[0], args[1])
+        else:
+            out = self.run(func, args, kwargs, mutates)
         if isinstance(out, torch.Tensor):
             if 0 in routed:
                 return out
@@ -1097,7 +1168,14 @@ class _PolicyMode(_WalkMode):
                 or not all(_is_float(a) for a in args)):
             return None
         fmt = parse_format(rule.fmt)
-        return fmt if _fp8.is_native_fp8_format(fmt) else None
+        if not _fp8.is_native_fp8_format(fmt):
+            return None
+        if any(_shd._is_dtensor(a) for a in args):
+            raise NotImplementedError(
+                "native_fp8 on DTensor operands is not ported: the fp8 dot "
+                "kernel takes whole tensors (gather the parameters, or "
+                "truncate without native_fp8)")
+        return fmt
 
     def run(self, func, args, kwargs, mutates):
         fmt, self._fp8 = self._fp8, None
@@ -1155,6 +1233,9 @@ class _TableMode(_WalkMode):
         site = self.index.lookup(frame.path, pos, out_idx)
         if site is None or not val.dtype.is_floating_point:
             return val
+        return _shd.map_local(lambda v: self._round(v, site), val)
+
+    def _round(self, val, site: int):
         table = self._table_on(val.device)
         on_card = val.is_cuda and self.impl != "ref"
         if on_card or val.dtype == torch.float64 or self.impl == "cuda":

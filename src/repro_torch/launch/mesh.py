@@ -46,31 +46,14 @@ def device_mesh(shape: Sequence[int], axes: Sequence[str], device=None,
     world = ensure_process_group(device)
     if n > world:
         raise ValueError(f"{who}: {n} devices requested, {world} visible")
-    return DeviceMesh(_device_type(device),
-                      torch.arange(n).reshape(tuple(shape)),
-                      mesh_dim_names=tuple(axes))
-
-
-def data_group(mesh):
-    """The process group of the ranks that share this rank's coordinates
-    on every axis but the data-parallel ones (``pod`` and ``data``): the
-    group a data-parallel gradient is averaged over. Collective: every rank
-    of the mesh calls it."""
     import torch.distributed as dist
-    names = list(mesh.mesh_dim_names)
-    dp = [i for i, n in enumerate(names) if n in ("pod", "data")]
-    if len(dp) == 1:
-        return mesh.get_group(names[dp[0]])
-    ranks = mesh.mesh.permute(*dp, *[i for i in range(mesh.ndim)
-                                     if i not in dp])
-    ranks = ranks.reshape(math.prod(ranks.shape[:len(dp)]), -1)
-    mine = None
-    for col in range(ranks.shape[1]):       # every rank makes every group
-        members = ranks[:, col].tolist()
-        group = dist.new_group(members)
-        if dist.get_rank() in members:
-            mine = group
-    return mine
+    kind = _device_type(device)
+    if kind == "cuda" and dist.get_backend() == "gloo":
+        from repro_torch.distributed.sharding import (
+            route_gloo_cuda_collectives)
+        route_gloo_cuda_collectives()
+    return DeviceMesh(kind, torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

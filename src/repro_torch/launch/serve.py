@@ -9,10 +9,13 @@ truncation policy and sampled shadow profiling of live traffic.
 ``--production`` the full one. The model runs on one CUDA device (``--device
 cpu`` runs it on the CPU, for tests); random weights from seed 0. The
 parameters are placed under ``SERVE_PARAM_RULES`` (TP-only, the reference's
-serving layout) on the host mesh of the running process group, or on the
+serving layout) on the host mesh of the running process group
+(``make_host_mesh(model_parallel=2)``: ``(1, 2)`` on two ranks), or on the
 shape of a one-device mesh when there is none: every spec then resolves to
-replicated and the tensors stay as they are. Tensor-parallel serving over
-several ranks is not ported: the call raises.
+replicated and the tensors stay as they are. On a mesh of several ranks
+every rank holds its shards of the parameters and of the key / value
+cache, runs the decode step on them (tensor parallelism) and serves the
+same tokens.
 
 Requests stream in with mixed prompt lengths and token budgets; the engine
 admits each one into any free decode slot while the other slots keep
@@ -45,7 +48,7 @@ from repro_torch.core.policy import resolve_policy as _core_resolve_policy
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import Model
-from repro_torch.models.common import map_defs, resolve_device
+from repro_torch.models.common import resolve_device
 from repro_torch.serving import Engine, ShadowConfig
 
 
@@ -131,16 +134,9 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> Engine:
     mesh = (make_host_mesh(model_parallel=2, device=device)
             if dist.is_initialized()
             else shd.AbstractMesh({"data": 1, "model": 1}))
+    params = model.init(seed=0, device=device)
     if shd.mesh_size(mesh) > 1:
-        raise NotImplementedError(
-            f"serving on a mesh of {shd.mesh_size(mesh)} ranks: the port's "
-            "engine runs the whole model on each rank (no tensor "
-            "parallelism); serve on one rank")
-    with shd.use_mesh(mesh, param_rules=shd.SERVE_PARAM_RULES):
-        shardings = map_defs(
-            lambda pd: shd.param_sharding(pd.shape, pd.axes, mesh),
-            model.param_defs())
-        params = shd.place_tree(model.init(seed=0, device=device), shardings)
+        params = model.place_params(params, mesh, shd.SERVE_PARAM_RULES)
 
     policy, artifact = resolve_policy(args.policy, args.policy_artifact,
                                       args.registry)

@@ -34,16 +34,20 @@ Several ranks, one per device: ``--coordinator HOST:PORT --num-hosts N
 --host-id I`` starts the process group (``init_method="tcp://HOST:PORT"``);
 under ``torchrun`` (which sets ``RANK``, ``WORLD_SIZE`` and
 ``MASTER_ADDR``) ``--num-hosts N`` alone joins its group. The ranks form the
-host mesh, every rank trains on its slice of the global batch, and loss and
-gradients are averaged over the data axis before the update (the port's
-counterpart of GSPMD's data-parallel reduction; parameters stay replicated,
-so ``--production``'s FSDP x TP placement is the reference's alone). Rank 0
-writes the checkpoints. ``--multi-pod`` builds the 512-device production
-mesh and raises, naming the count, on fewer ranks.
+reference's smoke mesh, ``make_host_mesh(model_parallel=2)`` (``(1, 2)`` on
+two ranks, ``(2, 2)`` on four), and the parameters and the optimizer state
+are placed FSDP x TP under ``DEFAULT_PARAM_RULES``: every rank holds its
+shards (DTensors), the batch is laid out over the data axis, and the step is
+the global program's, so its loss and gradients are the mean over the
+global batch (the families ported to a mesh: dense and MoE GQA; the others
+raise). Every rank takes part in a checkpoint's gather, rank 0 writes it.
+``--multi-pod`` builds the 512-device production mesh and raises, naming
+the count, on fewer ranks.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 import time
@@ -65,16 +69,13 @@ from repro_torch.guardrails import (
     NumericalFaultError, StepMonitor,
 )
 from repro_torch.guardrails.controller import _DeviceTable
-from repro_torch.launch.mesh import (
-    data_group, make_host_mesh, make_production_mesh,
-)
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import Model
 from repro_torch.models.common import resolve_device
 from repro_torch.optim.adamw import AdamWConfig, warmup_cosine
 from repro_torch.train import (
     TrainConfig, init_opt_state, make_hotswap_train_step, make_train_step,
 )
-from repro_torch.train.trainer import _split_micro_fn
 
 
 def parse_args(argv=None):
@@ -133,9 +134,8 @@ def _parse_fault(spec: str) -> FaultSpec:
 
 
 def _distribution(args, device):
-    """``(mesh, data group)`` of the run: ``(None, None)`` on one rank.
-    Starts the process group a ``--coordinator`` or ``--num-hosts`` asks
-    for."""
+    """The mesh of the run, ``None`` on one rank. Starts the process group
+    a ``--coordinator`` or ``--num-hosts`` asks for."""
     backend = "nccl" if device.type == "cuda" else "gloo"
     if args.num_hosts < 1:
         raise ValueError(f"--num-hosts {args.num_hosts}: want at least 1")
@@ -146,12 +146,10 @@ def _distribution(args, device):
     elif args.num_hosts > 1 and not dist.is_initialized():
         dist.init_process_group(backend)        # torchrun's environment
     if args.multi_pod:
-        mesh = make_production_mesh(multi_pod=True, device=device)
-    elif dist.is_initialized() and dist.get_world_size() > 1:
-        mesh = make_host_mesh(model_parallel=1, device=device)
-    else:
-        return None, None
-    return mesh, data_group(mesh)
+        return make_production_mesh(multi_pod=True, device=device)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        return make_host_mesh(model_parallel=2, device=device)
+    return None
 
 
 def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
@@ -174,7 +172,7 @@ def main(argv=None, *, n_layers: Optional[int] = None) -> dict:
 
 
 def _main(args, device, n_layers):
-    mesh, dgroup = _distribution(args, device)
+    mesh = _distribution(args, device)
     rank = dist.get_rank() if mesh is not None else 0
     cfg = get_config(args.arch, "smoke" if args.smoke else "full")
     if n_layers is not None:
@@ -226,20 +224,26 @@ def _main(args, device, n_layers):
         input_mode=("encdec" if cfg.family == "encdec" else cfg.input_mode),
         mrope=cfg.rope_type == "mrope"))
     ck = Checkpointer(args.ckpt, keep_k=3, async_save=mesh is None)
-    if dgroup is not None:
-        n_data = dist.get_world_size(dgroup)
+    if mesh is not None:
+        n_data = math.prod(n for a, n in shd.mesh_shape(mesh).items()
+                           if a in ("pod", "data"))
         if gbatch % n_data:
             raise ValueError(f"global batch {gbatch} does not divide over "
                              f"{n_data} data ranks")
-        mine = (_split_micro_fn(n_data), dist.get_rank(dgroup))
         print(f"mesh={shd.mesh_shape(mesh)} rank={rank}: "
               f"{gbatch // n_data} rows of each batch", flush=True)
 
     def next_batch():
         batch = to_device(pf.next(), device)
-        return batch if dgroup is None else mine[0](batch, mine[1])
+        if mesh is None:
+            return batch
+        # every rank draws the global batch and keeps its rows
+        return {k: shd.place(v, shd.batch_sharding(mesh))
+                for k, v in batch.items()}
 
     params = model.init(seed=0, device=device)
+    if mesh is not None:
+        params = model.place_params(params, mesh)
     state = {"params": params,
              "opt": init_opt_state(model, params, tc, device=device)}
     pf = Prefetcher(data)
@@ -253,14 +257,14 @@ def _main(args, device, n_layers):
             r for art, _ in swap_schedule.values() for r in art.policy.rules)
         step_fn, sites = make_hotswap_train_step(
             model, tc, TruncationPolicy(rules=site_rules), state["params"],
-            peeked[0], data_group=dgroup)
+            peeked[0])
         # the live table is numpy (faults and the ladder rewrite it); the
         # step reads its device copy, made again only when it changes
         live_table = _DeviceTable(step_fn.device_table)
         active = {"ref": artifact_ref,
                   "table": sites.table_for(artifact.policy)}
     else:
-        step_fn = make_train_step(model, tc, data_group=dgroup)
+        step_fn = make_train_step(model, tc)
         sites = active = None
 
     # ---- runtime numerical guardrails -------------------------------------
@@ -315,7 +319,7 @@ def _main(args, device, n_layers):
         return latest
 
     def save_fn(step: int):
-        if rank == 0:
+        if rank == 0 or mesh is not None:      # sharded: every rank gathers
             ck.save(step, (state["params"], state["opt"]),
                     extra={"data": data.state_dict()},
                     policy_artifact=active["ref"] if active else None)

@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, replicate_like
 from repro_torch.core.interpreter import (
     loop_body, loop_const, remat, scope, zero_cotangents,
 )
@@ -61,7 +61,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     assert S % q_chunk == 0 and T % kv_chunk == 0, (S, T, q_chunk, kv_chunk)
 
     qg = q.reshape(B, Hkv, G, S, Dk)
-    pos = torch.arange(max(S, T), device=q.device)
+    pos = replicate_like(q, torch.arange(max(S, T), device=q.device))
 
     # sliding-window block skipping: with a static window each q chunk only
     # needs the kv chunks covering [q0 - window + 1, q0 + Cq) — an O(S*W)
@@ -75,8 +75,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
         kp = pos[k0:k0 + kv_chunk]
         s = common.einsum("bhgqd,bhkd->bhgqk", q_blk.to(torch.float32),
                           k_blk.to(torch.float32)) * scale
-        mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
-                          device=q.device)
+        mask = replicate_like(q, torch.ones((q_chunk, kv_chunk),
+                                            dtype=torch.bool,
+                                            device=q.device))
         if causal:
             mask = mask & (qp[:, None] >= kp[None, :])
         if window is not None:
@@ -96,12 +97,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
         start = 0
         if n_win < nk:
             start = min(max((q0 - (window - 1)) // kv_chunk, 0), nk - n_win)
-        m = torch.full((B, Hkv, G, q_chunk), NEG_INF, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((B, Hkv, G, q_chunk), dtype=torch.float32,
-                        device=q.device)
-        acc = torch.zeros((B, Hkv, G, q_chunk, Dv), dtype=torch.float32,
-                          device=q.device)
+        m = replicate_like(q, torch.full((B, Hkv, G, q_chunk), NEG_INF,
+                                         dtype=torch.float32,
+                                         device=q.device))
+        l = replicate_like(q, torch.zeros((B, Hkv, G, q_chunk),
+                                          dtype=torch.float32,
+                                          device=q.device))
+        acc = replicate_like(q, torch.zeros((B, Hkv, G, q_chunk, Dv),
+                                            dtype=torch.float32,
+                                            device=q.device))
         # the kv chunks are the scan's xs, as in the reference: one split,
         # whose transpose concatenates the trips' cotangents (no sum)
         ks, vs = k.split(kv_chunk, dim=2), v.split(kv_chunk, dim=2)
@@ -143,6 +147,7 @@ def _cursors(pos, B: int, device) -> torch.Tensor:
     return pos.to(torch.int32).expand(B)
 
 
+
 def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
                      scale: Optional[float] = None, ring: bool = False):
     """One-token attention. q: (B, Hq, Dk); caches: (B, Hkv, S, D*);
@@ -164,8 +169,9 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int] = None,
     qg = q.reshape(B, Hkv, G, Dk)
     s = common.einsum("bhgd,bhkd->bhgk", qg.to(torch.float32),
                       k_cache.to(torch.float32)) * scale
-    idx = torch.arange(S, device=q.device)[None, None, None, :]
-    cur = pos_b[:, None, None, None]
+    idx = replicate_like(q, torch.arange(S, device=q.device))[
+        None, None, None, :]
+    cur = replicate_like(q, pos_b)[:, None, None, None]
     if ring:
         last = cur - 1  # index of the newest token (already inserted)
         slot_pos = last - torch.remainder(last - idx, S)
@@ -272,8 +278,10 @@ def gqa_decode(p, x1, cache, pos, cfg: ArchConfig, *,
     q, k, v = _project_qkv(
         p, x1, cfg, positions3 if cfg.rope_type == "mrope" else positions)
     slot = torch.remainder(pos_b, S_cache) if ring else pos_b
-    onehot = (torch.arange(S_cache, device=x1.device)[None, :]
-              == slot[:, None])[:, None, :, None]           # (B,1,S,1)
+    onehot = (replicate_like(cache["k"], torch.arange(
+        S_cache, device=x1.device))[None, :]
+              == replicate_like(cache["k"], slot)[:, None])[
+        :, None, :, None]                                   # (B,1,S,1)
     k_cache = _write_slot(cache["k"], k, onehot)
     v_cache = _write_slot(cache["v"], v, onehot)
     o = decode_attention(q[:, :, 0], k_cache, v_cache, pos_b + 1,

@@ -14,6 +14,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.interpreter import _formulas_walk, scope, shared_body
+from repro_torch.distributed.sharding import (
+    _is_dtensor, einsum_layout, local_einsum, replicate_like,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -99,8 +102,17 @@ def count_params(defs) -> int:
 def einsum(spec: str, a, b):
     """``torch.einsum`` under a scope named after its subscripts: the
     reference's ``jnp.einsum`` puts its contraction under exactly that name
-    (``layer/attn/mix/bhgqd,bhkd->bhgqk``), and policies may address it."""
+    (``layer/attn/mix/bhgqd,bhkd->bhgqk``), and policies may address it.
+    DTensor operands split over its batch labels only (heads, experts)
+    run on each rank's shards (``sharding.local_einsum``); others are laid
+    out for it by ``sharding.einsum_layout``."""
     with scope(spec):
+        if _is_dtensor(a) or _is_dtensor(b):
+            out = local_einsum(spec, a, b)
+            if out is not None:
+                return out
+            a, b, lay_out = einsum_layout(spec, a, b)
+            return lay_out(torch.einsum(spec, a, b))
         return torch.einsum(spec, a, b)
 
 
@@ -290,7 +302,9 @@ def apply_rope(x, positions, *, theta: float = 1e4, fraction: float = 1.0):
     rd -= rd % 2
     if rd == 0:
         return x
-    inv = rope_freqs(rd, theta, x.device)                          # (rd/2,)
+    # the rotary tables: every rank's whole, beside a sharded x
+    inv = replicate_like(x, rope_freqs(rd, theta, x.device))       # (rd/2,)
+    positions = replicate_like(x, positions)
     ang = positions.to(torch.float32)[:, None, :, None] * inv  # (B,1,S,rd/2)
     sin, cos = torch.sin(ang), torch.cos(ang)
     xr, xp = x[..., :rd], x[..., rd:]

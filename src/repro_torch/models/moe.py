@@ -33,7 +33,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.core.interpreter import scope
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (
+    constrain, global_value, replicate_like, settled,
+)
 from repro_torch.models import common
 from repro_torch.models.common import ParamDef, ACTIVATIONS
 
@@ -105,7 +107,10 @@ def dispatch_plan(ids, n_experts: int, capacity: int):
     """Where each (token, k) slot goes: returns ``(slot_tok, slot_of)``.
     ``slot_tok`` (E*C,) is the source token of every expert slot (T, the
     zero sentinel row, where empty); ``slot_of`` (T*K,) the expert slot of
-    every (token, k) pair (E*C, the sentinel, where dropped)."""
+    every (token, k) pair (E*C, the sentinel, where dropped). On a mesh
+    the plan is the global one, computed whole on every rank from the
+    replicated ids."""
+    ids, wrap = global_value(ids)
     T, K = ids.shape
     E, C = n_experts, capacity
     dev = ids.device
@@ -127,7 +132,7 @@ def dispatch_plan(ids, n_experts: int, capacity: int):
     # (token, k) slot -> its expert slot
     slot_of = torch.full((T * K,), E * C, dtype=torch.int64, device=dev)
     slot_of = slot_of.scatter(0, order, dest)
-    return slot_tok, slot_of
+    return wrap(slot_tok), wrap(slot_of)
 
 
 def moe_forward(p, x, cfg: ArchConfig, capacity: Optional[int] = None):
@@ -139,14 +144,17 @@ def moe_forward(p, x, cfg: ArchConfig, capacity: Optional[int] = None):
     if capacity is None:
         capacity = capacity_of(cfg, T)
 
-    xf = x.reshape(T, d)
+    # the router's top-k reads whole rows: partial terms (a row-parallel
+    # product's) are reduced first, or DTensor reduce-scatters the tokens
+    # over ``model`` too, a split it cannot reshape back
+    xf = settled(x).reshape(T, d)
     with scope("router"):
         ids, gates = _routing(p, xf, mc)              # (T,K)
 
     with scope("dispatch"):
         slot_tok, slot_of = dispatch_plan(ids, E, capacity)
-        x_pad = torch.cat([xf, torch.zeros((1, d), dtype=xf.dtype,
-                                           device=xf.device)], dim=0)
+        x_pad = torch.cat([xf, replicate_like(xf, torch.zeros(
+            (1, d), dtype=xf.dtype, device=xf.device))], dim=0)
         x_grp = x_pad[slot_tok].reshape(E, capacity, d)
         x_grp = constrain(x_grp, "experts", None, "embed")
 
@@ -159,8 +167,8 @@ def moe_forward(p, x, cfg: ArchConfig, capacity: Optional[int] = None):
 
     with scope("combine"):
         y_flat = y_grp.reshape(E * capacity, d)
-        y_flat = torch.cat([y_flat, torch.zeros((1, d), dtype=y_flat.dtype,
-                                                device=y_flat.device)])
+        y_flat = torch.cat([y_flat, replicate_like(y_flat, torch.zeros(
+            (1, d), dtype=y_flat.dtype, device=y_flat.device))])
         # per (token, k) slot: value gathered back from its expert slot
         y_tk = y_flat[slot_of].reshape(T, K, d)
         g = gates.to(torch.float32)[..., None]

@@ -61,7 +61,9 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.interpreter import loop_body, remat, scope
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (
+    constrain, lookup, settled, whole_over_data,
+)
 from repro_torch.models import attention, moe as moe_mod, ssm
 from repro_torch.models.common import (
     ParamDef, ACTIVATIONS, rmsnorm, layernorm, map_defs, resolve_device,
@@ -322,7 +324,7 @@ def _embed_inputs(params, batch, cfg: ArchConfig):
         x = batch["embeds"].to(dtype)
     else:
         with scope("embed"):
-            x = params["embed"].to(dtype)[batch["tokens"]]
+            x = lookup(params["embed"].to(dtype), batch["tokens"])
     return constrain(x, "batch", "seq", "embed")
 
 
@@ -348,16 +350,18 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
 
     for i in range(_n_lead(cfg)):
         with scope(f"lead_layer{i}"):
-            x, _ = layer_forward(cfg, params["lead_layers"][i], x,
-                                 positions, "dense_lead", is_global=None)
+            x, _ = layer_forward(cfg,
+                                 whole_over_data(params["lead_layers"][i]),
+                                 x, positions, "dense_lead", is_global=None)
 
     stack, n_stack = params["layers"], cfg.n_layers - _n_lead(cfg)
     kind = _stack_kind(cfg)
 
     def body(is_global):
         def run(x, p_l):
-            return layer_forward(cfg, p_l, x, positions, kind,
-                                 is_global=is_global)[0]
+            # FSDP gathers a layer's weights where it runs them
+            return layer_forward(cfg, whole_over_data(p_l), x, positions,
+                                 kind, is_global=is_global)[0]
         return run
 
     if cfg.scan_layers:
@@ -389,10 +393,10 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
     if last_only:
         x = x[:, -1:]
     with scope("final_norm"):
-        x = apply_norm(params["final_norm"], x, cfg)
+        x = apply_norm(whole_over_data(params["final_norm"]), x, cfg)
     with scope("logits"):
-        head = (params["embed"].T if cfg.tie_embeddings
-                else params["lm_head"])
+        head = whole_over_data(params["embed"].T if cfg.tie_embeddings
+                               else params["lm_head"])
         logits = x.to(torch.float32) @ head.to(torch.float32)
         logits = constrain(logits, "batch", "seq", "vocab")
     return logits
@@ -429,7 +433,10 @@ def token_nll(logits, labels, mask=None):
     amax = torch.where(amax.abs() < math.inf, amax, 0.0).detach()
     sumexp = torch.exp(logits - amax).sum(dim=-1)
     logz = torch.log(torch.abs(sumexp)) + amax[..., 0]
-    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))
+    # over vocab-sharded logits each rank gathers the labels its shard
+    # holds: the terms are summed before the select below
+    gold = settled(torch.gather(logits, -1,
+                                labels[..., None].to(torch.int64)))
     nll = logz - gold[..., 0]
     if mask is not None:
         nll = nll * mask
@@ -507,6 +514,27 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device=None):
     return cache
 
 
+def cache_axes(cache):
+    """The logical axes of every leaf of a GQA ``init_cache`` tree: the
+    cursors ``("batch",)``, each key / value cache ``(batch, kv_heads,
+    cache_seq, None)`` behind its stack axes. On a mesh the act rules lay
+    the cache out over ``kv_heads`` (the model axis), as the attention's
+    keys and values are (``gqa_forward``'s constraints)."""
+    def axes(key, t):
+        if isinstance(t, dict):
+            return {k: axes(k, v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [axes(key, v) for v in t]
+        if key in ("k", "v"):
+            return (None,) * (t.ndim - 4) + ("batch", "kv_heads",
+                                             "cache_seq", None)
+        if key == "pos":
+            return ("batch",)
+        raise NotImplementedError(f"cache leaf {key!r}: only the GQA "
+                                  "caches are laid out on a mesh")
+    return axes(None, cache)
+
+
 def decode_step(params, cache, tokens, cfg: ArchConfig, embeds=None):
     """One decode step. tokens: (B,) int32 (or embeds (B,1,d) for stub
     frontends). Returns ``(logits (B, vocab), new cache)``; the input cache
@@ -517,7 +545,7 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, embeds=None):
         x = embeds.to(dtype)
     else:
         with scope("embed"):
-            x = params["embed"].to(dtype)[tokens][:, None]
+            x = lookup(params["embed"].to(dtype), tokens)[:, None]
     x = constrain(x, "batch", "seq", "embed")
 
     new_pos = pos + 1

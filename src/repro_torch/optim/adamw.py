@@ -2,7 +2,9 @@
 
 State mirrors the parameter tree. ``state_dtype="bfloat16"`` halves the m/v
 footprint; the f32 master copy is kept whenever a parameter is half
-precision (``None`` otherwise). Nothing here reads a value back to the host:
+precision (``None`` otherwise). On sharded (DTensor) parameters ``m``,
+``v`` and the master are laid out as their parameter, the clip uses the
+norm of the global gradient, and the update runs on the local shards. Nothing here reads a value back to the host:
 the step counter, the clip scale and a scheduled learning rate are tensors
 on the parameters' device, so a train step makes no host synchronisation.
 """
@@ -13,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import sharding as _shd
 from repro_torch.models.common import torch_dtype
 from repro_torch.optim import tree as T
 
@@ -45,24 +48,32 @@ def init_state(params, cfg: AdamWConfig):
     sd, md = torch_dtype(cfg.state_dtype), torch_dtype(cfg.master_dtype)
     return {
         "step": torch.zeros((), dtype=torch.int32, device=_device(params)),
-        "m": T.tree_map(lambda p: torch.zeros(p.shape, dtype=sd,
-                                              device=p.device), params),
-        "v": T.tree_map(lambda p: torch.zeros(p.shape, dtype=sd,
-                                              device=p.device), params),
+        "m": T.tree_map(lambda p: _zeros_as(p, sd), params),
+        "v": T.tree_map(lambda p: _zeros_as(p, sd), params),
         "master": T.tree_map(
             lambda p: p.detach().to(md, copy=True) if _is_half(p) else None,
             params),
     }
 
 
+def _zeros_as(p, dtype):
+    """Zeros of ``p``'s shape in ``dtype``, laid out as ``p`` (a DTensor's
+    zeros are its placements' shards)."""
+    if _shd._is_dtensor(p):
+        return torch.zeros_like(p, dtype=dtype)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, the leaves added
-    in the reference's order from zero."""
+    in the reference's order from zero. Of DTensor leaves, the norm of the
+    global tree: each shard's sum of squares, summed over the ranks that
+    hold the pieces (a plain tensor on every rank)."""
     total = None
     for g in T.leaves(tree):
         sq = torch.sum(torch.square(g.to(torch.float32)))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return _shd.gather(_shd.settled(torch.sqrt(_shd.settled(total))))
 
 
 def apply_updates(params, grads, state, cfg: AdamWConfig, lr):
@@ -95,6 +106,17 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, lr):
         return new_p, mf.to(m.dtype), vf.to(v.dtype), new_master
 
     def upd_leaf(p, g, m, v, master):
+        """``upd`` on this rank's shards (elementwise, so the global
+        update's values), rewrapped as ``p`` is laid out."""
+        if not _shd._is_dtensor(p):
+            return upd_slices(p, g, m, v, master)
+        g = _shd.redistribute_as(g, p)
+        new = upd_slices(*[None if t is None else _shd.local_parts(t)[0]
+                           for t in (p, g, m, v, master)])
+        return tuple(None if n is None else _shd.like(o, n)
+                     for o, n in zip((p, m, v, master), new))
+
+    def upd_slices(p, g, m, v, master):
         """``upd`` on slices of at most ``_SLICE`` elements along the first
         axis (elementwise, so the same values), written into the new
         leaves: the f32 temporaries of one slice, not of a whole stacked

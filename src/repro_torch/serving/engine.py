@@ -51,6 +51,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core import api
 from repro_torch.core.api import truncate
+from repro_torch.distributed import sharding as _shd
 from repro_torch.core.policy import resolve_policy
 from repro_torch.serving.shadow import ShadowConfig, ShadowProfiler
 
@@ -108,7 +109,9 @@ class Engine:
 
     The cache lives on the device of ``params``; it and the decode step
     have ``rows`` = :func:`decode_rows` lanes, of which the first
-    ``batch_size`` serve requests.
+    ``batch_size`` serve requests. On sharded (DTensor) parameters the
+    cache is laid out on their mesh (``Model.place_cache``: over
+    ``kv_heads``) and a tick's read-back gathers the logits.
     """
 
     def __init__(self, model, params, batch_size: int = 8,
@@ -123,9 +126,12 @@ class Engine:
         res = resolve_policy(policy, registry=registry)
         self.policy = res.policy
         self.artifact = res.artifact
-        self.device = pytree.tree_leaves(params)[0].device
+        leaf = pytree.tree_leaves(params)[0]
+        self.device = leaf.device
         self.cache = model.init_cache(self.rows, max_seq_len,
                                       device=self.device)
+        if _shd._is_dtensor(leaf):
+            self.cache = model.place_cache(self.cache, leaf.device_mesh)
         self.slots: List[Optional[Request]] = [None] * batch_size
         self.lengths = np.zeros(batch_size, np.int32)
         raw_step = model.decode_step
@@ -134,6 +140,11 @@ class Engine:
                         if self.policy is not None
                         else _signatures_counted(raw_step))
         self._shadow: Optional[ShadowProfiler] = None
+        if shadow is not None and _shd._is_dtensor(leaf):
+            raise NotImplementedError(
+                "shadow profiling of a sharded engine: memtrace runs the "
+                "global program on gathered parameters; serve it on one "
+                "rank")
         if shadow is not None:
             self._shadow = ShadowProfiler(raw_step, self.policy, shadow,
                                           artifact=self.artifact)
@@ -198,6 +209,15 @@ class Engine:
         for key, sub in cache.items():
             axis = 1 if key in ("layers", "cross_k", "cross_v") else 0
             for t in pytree.tree_leaves(sub):
+                if _shd._is_dtensor(t):
+                    # the batch axis is whole on every rank: its lane of
+                    # the local shard
+                    if any(p.is_shard(axis) for p in t.placements):
+                        raise NotImplementedError(
+                            f"a cache laid out over its batch axis "
+                            f"({t.placements}): its lanes are on other "
+                            "ranks")
+                    t = _shd.local_parts(t)[0]
                 t.select(axis, slot).zero_()
         return cache
 
@@ -274,7 +294,8 @@ class Engine:
                 req._fed += 1
             self.lengths[s] += 1
 
-        logits_np = logits.float().cpu().numpy()   # the tick's host sync
+        # the tick's host sync (gathering sharded logits first)
+        logits_np = _shd.gather(logits).float().cpu().numpy()
         nxt = np.argmax(logits_np, axis=-1)
         # quarantine non-finite decode: a slot whose logits went NaN/Inf
         # fails THAT request with a clear status and frees the slot for the

@@ -31,6 +31,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core.api import truncate, truncate_sweep
+from repro_torch.distributed import sharding as _shd
 from repro_torch.core.policy import TruncationPolicy
 from repro_torch.models.common import resolve_device
 from repro_torch.optim import adamw, compression
@@ -67,22 +68,20 @@ def value_and_grad(loss_fn):
     """``(params, batch) -> (loss, grads)``, the gradients a tree like
     ``params`` (zeros for a parameter the loss does not use, as JAX
     gives). The tape is recorded and replayed inside the call, so a
-    ``truncate`` or ``truncate_sweep`` of the result sees both passes."""
+    ``truncate`` or ``truncate_sweep`` of the result sees both passes.
+    On DTensor parameters the loss is the global program's (its partial
+    sums over the ranks reduced before the backward pass starts) and each
+    gradient comes back laid out as its parameter."""
     def grad_fn(params, batch):
         leaves = T.leaves(params)
         with torch.enable_grad():
             live = [p.detach().requires_grad_(True) for p in leaves]
-            loss = loss_fn(T.unflatten(params, live), batch)
+            loss = _shd.settled(loss_fn(T.unflatten(params, live), batch))
             grads = torch.autograd.grad(loss, live, materialize_grads=True)
-        return loss.detach(), T.unflatten(params, list(grads))
+        grads = [_shd.redistribute_as(g, p) if _shd._is_dtensor(p) else g
+                 for g, p in zip(grads, leaves)]
+        return _shd.gather(loss.detach()), T.unflatten(params, grads)
     return grad_fn
-
-
-def _data_mean(tree, group):
-    """The mean of ``tree`` over the ranks of ``group``."""
-    from repro_torch.distributed.sharding import all_reduce
-    world = torch.distributed.get_world_size(group)
-    return T.tree_map(lambda t: all_reduce(t, group, "sum") / world, tree)
 
 
 def _device_scalar(x, dtype, device) -> torch.Tensor:
@@ -93,10 +92,8 @@ def _device_scalar(x, dtype, device) -> torch.Tensor:
     return torch.full((), x, dtype=dtype, device=device)
 
 
-def _build_train_step(tc: TrainConfig, grad_fn, grad_shardings=None,
-                      data_group=None):
-    """The shared step body: microbatch accumulation, the data-parallel
-    mean, gradient compression, the optimizer update. ``grad_fn(params,
+def _build_train_step(tc: TrainConfig, grad_fn, grad_shardings=None):
+    """The shared step body: microbatch accumulation, gradient compression, the optimizer update. ``grad_fn(params,
     micro_batch, *extra) -> (loss, grads)``; ``*extra`` step arguments (the
     hot-swap format table) go to every microbatch call."""
     accum = max(tc.grad_accum, 1)
@@ -113,8 +110,8 @@ def _build_train_step(tc: TrainConfig, grad_fn, grad_shardings=None,
         if accum == 1:
             loss, grads = grad_fn(params, batch, *extra)
         else:
-            acc = T.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            acc = T.tree_map(lambda p: adamw._zeros_as(p, torch.float32),
+                             params)
             loss = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(accum):
                 loss_i, g_i = grad_fn(params, split_micro(batch, i), *extra)
@@ -123,8 +120,6 @@ def _build_train_step(tc: TrainConfig, grad_fn, grad_shardings=None,
                 loss = loss + loss_i
             grads = T.tree_map(lambda g: g / accum, acc)
             loss = loss / accum
-        if data_group is not None:
-            loss, grads = _data_mean((loss, grads), data_group)
         grads = constrain_grads(grads)
 
         if tc.grad_compression == "bf16":
@@ -151,8 +146,7 @@ def _build_train_step(tc: TrainConfig, grad_fn, grad_shardings=None,
     return train_step
 
 
-def make_train_step(model, tc: TrainConfig, grad_shardings=None, *,
-                    data_group=None):
+def make_train_step(model, tc: TrainConfig, grad_shardings=None):
     """The train step of ``model`` under ``tc``; with ``tc.policy`` the
     differentiated loss runs under ``truncate(..., impl=tc.policy_impl)``
     (``train_step.grad_fn`` is that wrapper, with its ``n_traces``).
@@ -161,21 +155,18 @@ def make_train_step(model, tc: TrainConfig, grad_shardings=None, *,
     (the parameters' structure or a prefix): each gradient is laid out as
     its parameter is -- a DTensor gradient is redistributed to the
     placements, a plain one (the global value every rank holds) keeps its
-    layout, as a sharding constraint changes no value.
-    ``data_group``: the process group of the data axis when every rank
-    trains on its slice of the batch: loss and gradients are averaged over
-    it before the update (what GSPMD's data-parallel reduction does)."""
+    layout, as a sharding constraint changes no value."""
     grad_fn = value_and_grad(model.loss)
     if tc.policy is not None:
         grad_fn = truncate(grad_fn, tc.policy, impl=tc.policy_impl)
-    step = _build_train_step(tc, grad_fn, grad_shardings, data_group)
+    step = _build_train_step(tc, grad_fn, grad_shardings)
     step.grad_fn = grad_fn
     return step
 
 
 def make_hotswap_train_step(model, tc: TrainConfig, site_policy,
                             example_params, example_batch,
-                            grad_shardings=None, *, data_group=None):
+                            grad_shardings=None):
     """A train step whose truncation policy is a runtime argument.
 
     Every ``site_policy``-matched site of the differentiated loss, forward
@@ -197,8 +188,8 @@ def make_hotswap_train_step(model, tc: TrainConfig, site_policy,
     table given as a numpy array is copied to the device at each call
     (a host synchronisation); ``train_step.device_table`` makes the device
     copy once. ``train_step.sweep`` is the ``truncate_sweep`` wrapper
-    (``n_traces`` counts enumerations). ``grad_shardings`` and
-    ``data_group`` as for :func:`make_train_step`."""
+    (``n_traces`` counts enumerations). ``grad_shardings`` as for
+    :func:`make_train_step`."""
     accum = max(tc.grad_accum, 1)
     micro = (example_batch if accum == 1
              else _split_micro_fn(accum)(example_batch, 0))
@@ -211,7 +202,7 @@ def make_hotswap_train_step(model, tc: TrainConfig, site_policy,
     def grad_fn(params, micro_batch, table):
         return sweep(params, micro_batch)(table)
 
-    step = _build_train_step(tc, grad_fn, grad_shardings, data_group)
+    step = _build_train_step(tc, grad_fn, grad_shardings)
     step.sweep = sweep
     step.device_table = lambda table: torch.as_tensor(
         table, device=device).to(torch.int32)

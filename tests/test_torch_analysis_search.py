@@ -14,6 +14,7 @@ import torch
 import repro_torch.analysis as ta
 
 from test_torch_analysis import tensor_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # --------------------------------------------------------------------------

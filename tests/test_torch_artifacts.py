@@ -49,6 +49,7 @@ from repro_torch.core.policy import magnitude_below, parse_policy
 from repro_torch.profile import ladder_hints
 
 from test_torch_search import assigns, bench, toy_args, ttoy
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 BENCH_JSON = os.path.join(ROOT, "artifacts", "bench_model.json")

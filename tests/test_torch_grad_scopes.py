@@ -59,6 +59,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.train import value_and_grad
 
 from test_torch_families import make_batch, numpy_params, prims_by_scope, setup
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _loss(w, x):

@@ -42,6 +42,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.launch.mesh import make_probe_mesh
 
 from test_torch_distributed import one_rank  # noqa: F401 (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-2
 

@@ -20,7 +20,9 @@ one process computes unsharded:
     slices' reports, and so does the trajectory;
   * ``autosearch(mesh=)``: the same assignments, evaluations, dispatches,
     rows a dispatch and history as the unsharded search, ``probe_batch``
-    padded to the probe axis.
+    padded to the probe axis;
+  * ``launch.train`` and ``launch.serve`` on the two ranks' (1, 2) mesh,
+    against one process.
 
 The two-rank job runs in tier 1; the reference's (probe=2, data=4) cases
 run on eight ranks under the ``spmd`` marker.
@@ -50,6 +52,13 @@ SEARCH = dict(threshold=1e-2, budget=48)
 TRAIN = ["--arch", "h2o-danube-1.8b", "--device", "cpu", "--seq", "16",
          "--global-batch", "4", "--steps", "3", "--save-every", "2",
          "--policy", "scope:**/mlp=e5m7"]
+SERVE = ["--arch", "glm4-9b", "--device", "cpu", "--requests", "3",
+         "--new-tokens", "3", "--policy", "scope:**/mlp=e5m7"]
+
+
+def _served(engine):
+    """Each request's tokens, by request id."""
+    return {rid: req.out_tokens for rid, req in engine._done.items()}
 
 
 def _toy(w1, w2, x):
@@ -143,12 +152,7 @@ def _job(rank, world, sweep_mesh, data_mesh, store, out_dir):
             res["train"] = train.main(TRAIN + [
                 "--num-hosts", str(world),
                 "--ckpt", os.path.join(out_dir, "ck")])["losses"]
-            try:
-                serve.main(["--arch", "glm4-9b", "--device", "cpu",
-                            "--requests", "1", "--new-tokens", "1"])
-                res["serve"] = None
-            except NotImplementedError as e:
-                res["serve"] = str(e)
+            res["serve"] = _served(serve.main(SERVE))
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -264,10 +268,14 @@ def test_sharded_autosearch_dispatch_stats_match_unsharded(two_ranks):
 
 
 def test_launch_train_data_parallel(two_ranks, tmp_path):
-    """``launch.train`` on two ranks: each trains on its half of every
-    batch and the loss and gradients are averaged over the data axis, so
-    every rank's losses are one process's on the whole batch up to the
-    order of the sums (rank 0 writes the checkpoint at step 2)."""
+    """``launch.train`` on two ranks runs on the reference's smoke mesh,
+    ``make_host_mesh(model_parallel=2)``, which on two ranks is (data,
+    model) = (1, 2): the parameters and AdamW's state are DTensor shards
+    (FSDP x TP under ``DEFAULT_PARAM_RULES``) and the step is the global
+    program's, so every rank's losses are one process's to rtol 1e-5 (the
+    row-parallel sums in another order; rank 0 writes the checkpoint at
+    step 2). Data parallelism, the (2, 1) mesh, is held to one process in
+    ``test_torch_sharded_params.py``."""
     from repro_torch.launch import train
     want = train.main(TRAIN + ["--ckpt", str(tmp_path / "ck")])["losses"]
     for res in two_ranks:
@@ -277,12 +285,16 @@ def test_launch_train_data_parallel(two_ranks, tmp_path):
                                    rtol=1e-5)
 
 
-def test_launch_serve_refuses_a_mesh_of_two(two_ranks):
-    """Tensor-parallel serving is not ported: on two ranks ``launch.serve``
-    raises, naming the mesh, where it would place the parameters under
-    ``SERVE_PARAM_RULES`` (ROADMAP Queue C 25)."""
+def test_launch_serve_on_a_mesh_of_two(two_ranks):
+    """``launch.serve`` on two ranks serves tensor-parallel on (1, 2): the
+    parameters under ``SERVE_PARAM_RULES``, the key / value cache over
+    ``kv_heads``, every decode step's MLP under ``**/mlp`` e5m7. Both ranks
+    serve one process's tokens."""
+    from repro_torch.launch import serve
+    want = _served(serve.main(SERVE))
+    assert len(want) == 3
     for res in two_ranks:
-        assert res["serve"] and "mesh of 2 ranks" in res["serve"]
+        assert res["serve"] == want
 
 
 # ---- the reference's (probe=2, data=4) cases: eight ranks ------------------
