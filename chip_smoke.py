@@ -6,7 +6,7 @@
 Needs one CUDA device, ``nvcc`` and nothing else; exits non-zero without a
 device. Builds the port's CUDA kernels from the sources in this checkout
 (one ``nvcc`` per library, all started together), holds each against its
-plain PyTorch version on the card, then drives the port's fifteen paths:
+plain PyTorch version on the card, then drives the port's sixteen paths:
 
   * the main path — op-mode truncation (``truncate`` and ``truncate_sweep``)
     of h2o-danube-1.8b at full width and depth, bf16, one batch of 1 x 8192
@@ -50,7 +50,7 @@ plain PyTorch version on the card, then drives the port's fifteen paths:
     and the three mini-apps warm-started from ``warm_hints()`` and from
     their cold result's artifact;
   * the models path — every model family's forward: olmoe-1b-7b (64
-    experts, top-8) at full width, depth cut to 8 of its 16 layers, bf16,
+    experts, top-8) at full width, depth cut to 4 of its 16 layers, bf16,
     1 x 4096 tokens, through
     ``truncate`` scoped to its experts and to its router, three swept
     tables and ``memtrace`` of the router policy; then glm4-9b,
@@ -60,7 +60,7 @@ plain PyTorch version on the card, then drives the port's fifteen paths:
     and seamless-m4t-large-v2 at 2 + 2, each at full width, 1 x 2048
     tokens, through one scoped ``truncate`` held to ``impl='ref'``;
   * the serve path — ``repro_torch.launch.serve.main`` at glm4-9b's full
-    width, depth cut to 4 of its 40 layers (``--layers 40`` serves all 9.4 B
+    width, depth cut to 2 of its 40 layers (``--layers 40`` serves all 9.4 B
     parameters), bf16: 8 ragged requests
     through the continuous-batching ``Engine`` in 4 slots under
     ``scope:**/mlp=e5m7``, every decode step's MLP results through the
@@ -73,7 +73,7 @@ plain PyTorch version on the card, then drives the port's fifteen paths:
     ``impl='ref'``, and h2o-danube-1.8b's ring cache decoded 4,112 steps,
     past its 4,096-token window;
   * the train path — training h2o-danube-1.8b at full width, depth cut to
-    8 layers (``--layers 24`` runs it whole), bf16 parameters with the f32 master copy, 1 x 2048 tokens from the
+    4 layers (``--layers 24`` runs it whole), bf16 parameters with the f32 master copy, 1 x 2048 tokens from the
     seeded pipeline: plain steps (twice, deterministic), the train step
     truncated under ``scope:**/mlp=e5m7`` (loss and gradients, every
     backward op under its forward scope) held bit for bit to
@@ -92,7 +92,7 @@ plain PyTorch version on the card, then drives the port's fifteen paths:
     forward, recompute and backward locations, a trajectory step per layer
     and direction;
   * the fp8 path — ``truncate(model.loss, P, native_fp8=True)`` of
-    h2o-danube-1.8b at full width, depth cut to 12 layers, 1 x 8192
+    h2o-danube-1.8b at full width, depth cut to 6 layers, 1 x 8192
     tokens, ``P`` an e4m3
     ``quantize_dot_inputs`` rule on the MLP's products: every one through
     the fp8 dot kernel (``kernels/csrc/fp8_dot.cu``, on the tensor
@@ -117,7 +117,15 @@ plain PyTorch version on the card, then drives the port's fifteen paths:
     sharded_fsdp``, on (2, 1) (FSDP): three plain, truncated and
     hot-swapped steps against one rank's, the truncated step bit for bit
     ``impl='ref'``, every sharded leaf of the parameters, moments and
-    master a rank's half —
+    master a rank's half;
+  * the sharded families — the five other families at full width, depth
+    cut (qwen2-vl-7b and rwkv6-7b 2 layers, deepseek-v2-236b one dense and
+    one MoE layer, seamless-m4t-large-v2 2 + 2, hymba-1.5b 3), 1 x 512, on
+    (1, 2) of the same two ranks after the sharded path: a rank's bytes,
+    the loss and gradients, a scoped ``truncate``'s launches and 8
+    teacher-forced decode steps against one rank's, rwkv6-7b's engine with
+    a shadow lane, and h2o-danube-1.8b's MLP products on the fp8 kernel on
+    each rank's pieces —
 
 and times the kernels and the forward. Nothing is caught: any failed phase
 ends the run with a traceback and a non-zero exit code.
@@ -131,22 +139,25 @@ last line is ``{"ok": true, "device": {...}}``.
 
 Options (for debugging at a smaller size; the defaults are the full run):
 ``--layers N`` cuts the depth (the search, mesh and artifact paths' is 4,
-the mem and trajectory paths' 2, the serve path's 4, the fp8 path's 12, the
-train and grad profile paths' 8, the guard path's 2 and the sharded path's
-2 served and 2 trained unless given; on the models path, olmoe-1b-7b's, 8
+the mem and trajectory paths' 2, the serve path's 2, the fp8 path's 6, the
+train and grad profile paths' 4, the guard path's 2 and the sharded path's
+2 served and 2 trained unless given; on the models path, olmoe-1b-7b's, 4
 unless given),
 ``--seq S`` the sequence length of the
 h2o-danube paths (``--wkv-seq`` that of the WKV6 program), ``--phases a,b``
 runs only some of
 ``kernels,fused_kernels,main_path,mem_path,traj_path,fused_path,small_ref,
 times,reconcile,search_path,mesh_path,apps_path,artifact_path,models_path,
-serve_path,train_path,grad_profile_path,fp8_path,guard_path,sharded_path``
+serve_path,train_path,grad_profile_path,fp8_path,guard_path,sharded_path,
+sharded_families``
 (``kernels``
 includes the fp8
 kernel's checks, ``times`` its times; ``fp8_times`` alone times it)
 or adds
 ``sharded_fsdp`` (the sharded path's training on the FSDP mesh (2, 1)
-too), ``fp8_probe`` (the fp8 kernel's design step 0: which tensor-core route holds
+too), ``sharded_families_f32`` (rwkv6-7b and hymba-1.5b of the sharded
+families in f32: their gaps from one rank without bf16's roundings),
+``fp8_probe`` (the fp8 kernel's design step 0: which tensor-core route holds
 its error bound, from a library of its own, ``csrc/fp8_mma_probe.cu``),
 ``profile`` (device time by kernel name for one plain and one swept forward,
 a decode tick, a train step; ``profile_train`` the train step alone),
@@ -1303,7 +1314,7 @@ def phase_mem_path(device, layers, seq):
 MODELS_SEQ = 4096          # olmoe-1b-7b's context length
 # olmoe-1b-7b's default depth, for the default run's 600 s budget;
 # --layers 16 runs it whole
-MODELS_LAYERS = 8
+MODELS_LAYERS = 4
 FAMILY_SEQ = 2048
 # every other family at full width, depth cut (each cut listed), with the
 # block it is profiled by
@@ -1528,7 +1539,8 @@ SERVE_ARGV = ["--arch", "glm4-9b", "--production", "--batch", "4",
               # seed 0's draws sample request 4 alone (0.4237 < 0.43)
               "--shadow-rate", "0.43"]
 SERVE_BATCH, SERVE_SEQ = 4, 128
-SERVE_LAYERS = 4        # of glm4-9b's 40 (``--layers 40`` serves it whole)
+# of glm4-9b's 40, for the 600 s budget (``--layers 40`` serves it whole)
+SERVE_LAYERS = 2
 # every other family's decode at full width, depth cut as on the models path
 # (olmoe-1b-7b at full depth, as there), with the blocks its scoped decode
 # policy rounds: a decode step opens no attention or Mamba scope
@@ -2856,9 +2868,9 @@ TRAIN_SEQ = 2048
 # 1e-3 and 3e-4 the second step overshoots on the one batch (PERF.md)
 TRAIN_LR = 1e-4
 TRAIN_STEPS = 3
-# the default run's depth: the steps at 8 layers keep the run under its
-# 600 s budget beside the fp8 and guard paths; --layers 24 runs them whole
-TRAIN_LAYERS = 8
+# the default run's depth: the steps at 4 layers keep the run under its
+# 600 s budget beside the sharded phases; --layers 24 runs them whole
+TRAIN_LAYERS = 4
 TRAIN_IO_LAYERS = 2        # the CLI run and its checkpoint
 TRAIN_POLICY = "scope:**/mlp=e5m7"
 TRAIN_SWAP = "scope:**/attn/**=e8m3"
@@ -3155,7 +3167,7 @@ def phase_train_path(device, layers):
     return {k: counts[k] for k in counts}
 
 
-GRAD_PROFILE_STEPS = 16        # the trajectory's ring: 8 layers, twice
+GRAD_PROFILE_STEPS = 16        # the trajectory's ring: up to 8 layers, twice
 
 
 def phase_grad_profile_path(device, layers):
@@ -3698,9 +3710,9 @@ FP8_MLP_SHAPES = {"mlp_wi": (8192, 2560, 13824), "mlp_wo": (8192, 6912, 2560)}
 # land one bf16 step (2^-8 relative) apart; the mean loss over 8192 tokens
 # moves far less
 FP8_LOSS_RTOL = 1e-3
-# the fp8 path's default depth, for the default run's 600 s budget (24
-# layers took 24.8 s); --layers 24 runs it whole
-FP8_LAYERS = 12
+# the fp8 path's default depth, for the default run's 600 s budget;
+# --layers 24 runs it whole
+FP8_LAYERS = 6
 
 
 def fp8_operand(g, shape, device, scale, saturate=True, spread=0):
@@ -4485,31 +4497,71 @@ def sharded_train(layers, meshes):
     return res
 
 
-def sharded_rank(rank, world, store, out, serve_layers, train_layers,
-                 meshes):
-    """One of the two ranks of ``sharded_path``, both on ``cuda:0`` over
-    gloo (NCCL refuses two ranks on one device). Writes ``rank<r>.json``."""
-    import torch.distributed as dist
+def sharded_job(rank, serve_layers, train_layers, meshes):
+    """``sharded_path``'s work on one of the two ranks: the serve and the
+    train halves."""
     from repro_torch import kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = {"serve": sharded_serve(serve_layers)}
+    res["serve_seconds"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    res["train"] = sharded_train(train_layers, meshes)
+    res["train_seconds"] = time.perf_counter() - t1
+    res["launches"] = kernels.launch_counts()
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def mesh_ranks(rank, world, store, out, jobs):
+    """One of the two ranks of the sharded phases, both on ``cuda:0`` over
+    gloo (NCCL refuses two ranks on one device): each job of ``jobs``
+    (``(phase, args)``) in turn, its result in ``rank<r>-<phase>.json``
+    with the wall-clock time it started and ended. The phases share the
+    ranks, so the second one pays no process start and no first import of
+    DTensor's modules (~9 s on the card's host)."""
+    import torch.distributed as dist
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        t0 = time.perf_counter()
-        res = {"serve": sharded_serve(serve_layers)}
-        res["serve_seconds"] = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        res["train"] = sharded_train(train_layers, meshes)
-        res["train_seconds"] = time.perf_counter() - t1
-        res["launches"] = kernels.launch_counts()
-        res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
-        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-            json.dump(res, f)
+        for phase, args in jobs:
+            start = time.time()
+            res = RANK_JOBS[phase](rank, *args)
+            res.update(started=start, ended=time.time())
+            with open(os.path.join(out, f"rank{rank}-{phase}.json"),
+                      "w") as f:
+                json.dump(res, f)
+            torch.cuda.reset_peak_memory_stats()
     finally:
         dist.destroy_process_group()
 
 
-def phase_sharded_path(layers, meshes):
+def run_mesh_ranks(jobs):
+    """Spawn the two ranks for ``jobs`` and wait for them: ``{phase:
+    [each rank's result]}`` and the wall-clock time of the spawn. A check
+    that fails in a rank raises there, and this call raises."""
+    import tempfile
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="mesh_ranks_")
+    world = 2
+    start = time.time()
+    try:
+        mp.start_processes(mesh_ranks, args=(
+            world, os.path.join(tmp, "store"), tmp, jobs), nprocs=world,
+            join=True, start_method="spawn")
+        out = {}
+        for phase, _ in jobs:
+            out[phase] = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}-{phase}.json")) as f:
+                    out[phase].append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, start
+
+
+def phase_sharded_path(ranks, spawned, meshes):
     """Sharded parameters on two ranks of the one card (gloo, the
     ``mesh_rank`` pattern): glm4-9b served tensor-parallel on (1, 2)
     (``SERVE_PARAM_RULES``, ``SHARDED_SERVE_LAYERS`` deep unless
@@ -4523,24 +4575,11 @@ def phase_sharded_path(layers, meshes):
     syncs on the calling thread: the one read-back, and on a mesh the
     gather of the vocab-sharded logits before it; the train steps' losses
     within 1e-3 of one rank's, the truncated step bit-equal to
-    ``impl='ref'`` on the same shards; one enumeration a hot-swap step. A
-    collective that cannot run raises in its rank, and this call raises."""
-    import tempfile
-    import torch.multiprocessing as mp
-    t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="sharded_path_")
-    world = 2
-    try:
-        mp.start_processes(sharded_rank, args=(
-            world, os.path.join(tmp, "store"), tmp,
-            layers or SHARDED_SERVE_LAYERS, layers or SHARDED_TRAIN_LAYERS,
-            meshes), nprocs=world, join=True, start_method="spawn")
-        ranks = []
-        for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    ``impl='ref'`` on the same shards; one enumeration a hot-swap step.
+    ``ranks`` are the ranks' results (``run_mesh_ranks``, spawned at
+    ``spawned``); the phase's seconds run from the spawn to its last
+    rank's end."""
+    world = len(ranks)
     counts = {}
     for r in ranks:
         for k, v in r["launches"].items():
@@ -4598,7 +4637,375 @@ def phase_sharded_path(layers, meshes):
          rank_seconds=[[r["serve_seconds"], r["train_seconds"]]
                        for r in ranks],
          peak_gb=[r["peak_gb"] for r in ranks], launches=counts,
-         seconds=round(time.perf_counter() - t0, 1))
+         seconds=round(max(r["ended"] for r in ranks) - spawned, 1))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the sharded families: the five families the sharded path leaves out, on a
+# model axis of two
+# ---------------------------------------------------------------------------
+
+SF_SEQ = 512              # the scans' cut from 2048: a step a token
+SF_BATCH = 4              # decode slots
+SF_CACHE = 64             # decode cache length
+SF_FORCED = 8             # teacher-forced decode steps
+SF_SHADOW_RATE = 0.25
+SF_SHADOW_SEED = 1        # samples request 2 of the four
+SF_FP8_LAYERS = 2
+SF_FP8_SEQ = 2048
+# full width, depth cut (each cut listed in PERF.md §4), with the feed-forward
+# blocks a scoped ``truncate`` rounds at e5m7
+SF_FAMILIES = [
+    ("qwen2-vl-7b", dict(n_layers=2), ("layer/mlp",)),
+    # one dense lead layer and one MoE layer of 160 routed + 2 shared experts
+    ("deepseek-v2-236b", dict(n_layers=2),
+     ("lead_layer0/mlp", "layer/moe/experts")),
+    ("seamless-m4t-large-v2", dict(n_layers=2, enc_layers=2),
+     ("enc_layer/mlp", "dec_layer/mlp")),
+    ("rwkv6-7b", dict(n_layers=2), ("layer/channel_mix",)),
+    # global layers 0 and 2, a windowed one between
+    ("hymba-1.5b", dict(n_layers=3, global_layers=(0, 2)),
+     ("layer/mlp", "global_layer/mlp")),
+]
+SF_SHADOWED = "rwkv6-7b"        # the family whose engine serves shadowed
+
+
+def sf_family(arch, cut, scopes, mesh, rank, shadowed):
+    """One family on the (1, 2) mesh of both ranks, beside the same model
+    on rank 0 alone: its layout and bytes, the loss and gradients, a
+    scoped ``truncate``'s launches, teacher-forced decode steps."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import truncate
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import Model
+    from repro_torch.optim import tree as T
+    from repro_torch.train.trainer import value_and_grad
+
+    cfg = get_config(arch).replace(**cut)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    full = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    rank_note(arch, "init", round(time.perf_counter() - t0, 1), "s in")
+    sp = model.place_params(full, mesh)
+    one = full if rank == 0 else None
+    del full
+    torch.cuda.empty_cache()
+    rank_note(arch, "placed", round(time.perf_counter() - t0, 1), "s in")
+    batch = family_batch(cfg, 1, SF_SEQ, "cuda")
+    sb = shd.place_batch(batch, mesh)
+    res = dict(arch=arch, cut=cut, scopes=list(scopes),
+               bytes=layout_bytes(sp, shd.param_shardings(
+                   model.param_defs(), mesh)),
+               rank_param_bytes=local_bytes(sp))
+    grad_fn = value_and_grad(model.loss)
+    shd.ON_SHARDS.clear()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss, grads = grad_fn(sp, sb)
+    loss = float(shd.gather(loss))
+    torch.cuda.synchronize()
+    res["grad_seconds"] = time.perf_counter() - t1
+    res["scans"] = {f"{n}/{r}": c for (n, r), c in shd.ON_SHARDS.items()}
+    grads = T.leaves(grads)
+    res["loss"] = loss
+    if one is not None:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        l1, g1 = grad_fn(one, batch)
+        torch.cuda.synchronize()
+        res["grad_seconds_one_rank"] = time.perf_counter() - t1
+        res["loss_one_rank"] = float(l1)
+        # this rank's pieces of every gradient (half of each split leaf)
+        # against the same pieces of one rank's
+        res.update(piece_gaps(grads, T.leaves(g1),
+                              names=[k for k, _ in
+                                     T.leaves_with_path(sp)]))
+        del l1, g1
+    del grads
+    rank_note(arch, "grads", round(res["grad_seconds"], 1), "s",
+              round(res.get("grad_seconds_one_rank", 0), 1), "s one rank")
+
+    # a scoped truncate of the loss: the static quantizer's launches on this
+    # rank = the matched site executions of the sharded program
+    pol = scoped_policy(scopes, "e5m7")
+    rank_note(arch, "gradient pieces compared", round(time.perf_counter() - t0,
+                                                      1), "s in")
+    with torch.no_grad():
+        res["matched_site_executions"] = matched_executions(
+            model.loss, pol, (sp, sb))
+        rank_note(arch, "enumerated", round(time.perf_counter() - t0, 1),
+                  "s in")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        lt = float(shd.gather(truncate(model.loss, pol)(sp, sb)))
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+    res.update(loss_truncated=lt, static_launches=c["quantize_em_static"],
+               dynamic_launches=c["quantize_em_dynamic"])
+    rank_note(arch, "truncate", round(time.perf_counter() - t0, 1), "s in")
+
+    # teacher-forced decode: the engine's step on the engine's cache layout
+    # (``Model.place_cache``) against one rank's
+    from repro_torch.serving import Engine
+    r = np.random.RandomState(2)
+    forced = torch.from_numpy(r.randint(1, cfg.vocab, (SF_FORCED, SF_BATCH))
+                              .astype(np.int32)).cuda()
+    worst = scale = 0.0
+    agree = 0
+    with torch.no_grad():
+        cache = model.place_cache(model.init_cache(SF_BATCH, SF_CACHE,
+                                                   device="cuda"), mesh)
+        res["cache_bytes"] = [local_bytes(cache), global_bytes(cache)]
+        t2 = time.perf_counter()
+        sharded = []
+        for t in range(SF_FORCED):
+            ls, cache = model.decode_step(sp, cache, forced[t])
+            sharded.append(shd.gather(ls).float())
+        torch.cuda.synchronize()
+        res["decode_seconds"] = time.perf_counter() - t2
+        c1 = None
+        if one is not None:
+            c1 = model.init_cache(SF_BATCH, SF_CACHE, device="cuda")
+            t2 = time.perf_counter()
+            for t in range(SF_FORCED):
+                lo, c1 = model.decode_step(one, c1, forced[t])
+                lo = lo.float()
+                ls = sharded[t]
+                worst = max(worst, float((ls - lo).abs().max()))
+                scale = max(scale, float(lo.abs().max()))
+                agree += int((ls.argmax(-1) == lo.argmax(-1)).sum())
+            torch.cuda.synchronize()
+            res["decode_seconds_one_rank"] = time.perf_counter() - t2
+    if one is not None:
+        res["forced"] = dict(steps=SF_FORCED, max_abs_diff=worst,
+                             max_abs_logit=scale, ratio=worst / scale,
+                             argmax_agree=agree,
+                             argmax_total=SF_FORCED * SF_BATCH)
+    del cache, c1
+
+    if arch == shadowed:
+        # the engine serves the same requests with a shadow lane and
+        # without: the shadowed tokens are the truncated ones
+        from repro_torch.serving import ShadowConfig
+        spol = scoped_policy(scopes, "e5m7")
+        toks = {}
+        with torch.no_grad():
+            for name, shadow in (("truncated", None), ("shadowed",
+                                 ShadowConfig(rate=SF_SHADOW_RATE,
+                                              seed=SF_SHADOW_SEED))):
+                eng = Engine(model, sp, batch_size=SF_BATCH,
+                             max_seq_len=SF_CACHE, policy=spol,
+                             shadow=shadow)
+                handles = [eng.submit(p, max_new_tokens=4)
+                           for p in serve_workload(cfg.vocab)]
+                eng.run()
+                toks[name] = [h.out_tokens for h in handles]
+                if shadow is not None:
+                    res["shadow"] = dict(
+                        rate=SF_SHADOW_RATE,
+                        shadowed_requests=sum(h.shadowed for h in handles),
+                        report_sites=len(eng.serving_report.top(1000))
+                        if eng.serving_report is not None else 0,
+                        cache_sizes=eng.cache_sizes())
+                del eng
+        res["shadow"]["tokens_equal"] = toks["truncated"] == toks["shadowed"]
+        res["shadow"]["tokens"] = sum(len(t) for t in toks["truncated"])
+    res["seconds"] = time.perf_counter() - t0
+    del sp, one
+    torch.cuda.empty_cache()
+    return res
+
+
+def piece_gaps(grads, whole, names, chunk=1 << 24):
+    """The relative L2 gap of this rank's pieces of ``grads`` (DTensors)
+    from the same pieces of ``whole`` (one rank's), the largest leaf gaps
+    relative to each leaf's largest element (the three worst named), and
+    whether every piece is finite; ``chunk`` elements at a time, so no leaf
+    is widened to f32 whole."""
+    from repro_torch.distributed import sharding as shd
+    diff = norm = worst = 0.0
+    finite = True
+    leaves = []
+    for g, w, name in zip(grads, whole, names):
+        a, placements = shd.local_parts(shd.settled(g))
+        for md, p in enumerate(placements or ()):
+            if p.is_shard():
+                w = w.chunk(g.device_mesh.size(md), p.dim)[
+                    g.device_mesh.get_local_rank(md)]
+        x, y = a.reshape(-1), w.reshape(-1)
+        d = torch.zeros((), device=x.device)
+        m, big, bad = d.clone(), d.clone(), d.clone()
+        for i in range(0, x.numel(), chunk):
+            xs, ys = x[i:i + chunk].float(), y[i:i + chunk].float()
+            d += (xs - ys).pow(2).sum()
+            m += ys.pow(2).sum()
+            big = torch.maximum(big, (xs - ys).abs().max())
+            bad += (~torch.isfinite(xs)).sum()
+        diff, norm = diff + float(d), norm + float(m)
+        gap = float(big) / max(float(y.abs().max()), 1e-30)
+        worst = max(worst, gap)
+        leaves.append((gap, "/".join(str(k).strip("[]'") for k in name),
+                       math.sqrt(float(d) / max(float(m), 1e-30))))
+        finite = finite and not float(bad)
+    return dict(grad_rel_l2=math.sqrt(diff / norm), grad_worst_leaf=worst,
+                grad_worst_leaves=sorted(leaves, reverse=True)[:3],
+                grads_finite=finite)
+
+
+def serve_workload(vocab, n=SF_BATCH, seed=4):
+    r = np.random.RandomState(seed)
+    return [r.randint(1, vocab, int(r.randint(2, 6))) for _ in range(n)]
+
+
+def sf_fp8(mesh, rank):
+    """``truncate(model.loss, P, native_fp8=True)`` of h2o-danube-1.8b at
+    full width, ``SF_FP8_LAYERS`` deep, 1 x ``SF_FP8_SEQ``, on (1, 2), ``P``
+    the fp8 path's e4m3 dot-input rule on ``**/mlp``: the fp8 kernel on
+    each rank's pieces (the column-parallel ``wi``'s shard of the result,
+    the row-parallel ``wo``'s f32 partial sums reduced before the one
+    rounding), against the emulated loss on the same shards and rank 0's
+    native loss alone."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import (E4M3, TruncationPolicy, TruncationRule,
+                                  truncate)
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import Model
+    cfg = get_config("h2o-danube-1.8b").replace(n_layers=SF_FP8_LAYERS)
+    model = Model(cfg)
+    pol = TruncationPolicy(rules=(TruncationRule(
+        fmt=E4M3, scope="**/mlp", ops=("dot_general",),
+        quantize_dot_inputs=True),))
+    full = model.init(seed=0, device="cuda")
+    sp = model.place_params(full, mesh)
+    batch = make_batch(cfg, 1, SF_FP8_SEQ, "cuda")
+    sb = shd.place_batch(batch, mesh)
+    res = {}
+    with torch.no_grad():
+        res["matched_dot_site_executions"] = matched_executions(
+            model.loss, TruncationPolicy.scoped("**/mlp", "e8m7",
+                                                ops=("dot_general",)),
+            (sp, sb))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        res["loss_native"] = float(shd.gather(
+            truncate(model.loss, pol, native_fp8=True)(sp, sb)))
+        torch.cuda.synchronize()
+        res["fp8_launches"] = kernels.launch_counts()["fp8_dot"]
+        res["loss_emulated"] = float(shd.gather(
+            truncate(model.loss, pol)(sp, sb)))
+        if rank == 0:
+            res["loss_native_one_rank"] = float(
+                truncate(model.loss, pol, native_fp8=True)(full, batch))
+    del full, sp
+    torch.cuda.empty_cache()
+    return res
+
+
+def families_job(rank, families=None, shadowed=SF_SHADOWED):
+    """``sharded_families``' work on one of the two ranks: every family of
+    ``families`` (``SF_FAMILIES``) on (1, 2), the ``shadowed`` one's
+    engine with a shadow lane, then the fp8 case."""
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import device_mesh
+    mesh = device_mesh((1, 2), ("data", "model"), device="cuda")
+    kernels.reset_launch_counts()
+    res = {"families": []}
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    for arch, cut, scopes in families or SF_FAMILIES:
+        res["families"].append(sf_family(arch, cut, scopes, mesh, rank,
+                                         shadowed))
+        for k, v in kernels.launch_counts().items():
+            total[k] += v
+        kernels.reset_launch_counts()
+        rank_note("sharded_families", arch,
+                  round(res["families"][-1]["seconds"], 1), "s")
+    res["fp8"] = sf_fp8(mesh, rank)
+    for k, v in kernels.launch_counts().items():
+        total[k] += v
+    res["launches"] = total
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+# ``--phases sharded_families_f32``: the two scanned families in f32, no
+# shadow lane, whose gaps from one rank are the sums' order alone (the bf16
+# run's are that and bf16's roundings, amplified by the recurrences)
+SF_F32_FAMILIES = [(arch, dict(cut, dtype="float32"), scopes)
+                   for arch, cut, scopes in SF_FAMILIES
+                   if arch in ("rwkv6-7b", "hymba-1.5b")]
+
+RANK_JOBS = {"sharded_path": sharded_job, "sharded_families": families_job,
+             "sharded_families_f32": lambda rank: families_job(
+                 rank, SF_F32_FAMILIES, shadowed=None)}
+
+
+def phase_sharded_families(ranks, phase="sharded_families",
+                           shadowed=SF_SHADOWED):
+    """The five families the sharded path leaves out (qwen2-vl-7b,
+    deepseek-v2-236b, seamless-m4t-large-v2, rwkv6-7b, hymba-1.5b) at full
+    width, depth cut, on (data, model) = (1, 2) of the two gloo ranks of
+    the one card (``run_mesh_ranks``, after the sharded path's work when
+    both run), each beside the same model on rank 0 alone: every leaf the
+    rules split halved on each rank; the loss within 1e-3 relative of one
+    rank's, the gradients' relative L2 gap within ``LOGIT_TOL``; a scoped
+    e5m7 ``truncate`` whose static launches a rank = the matched site
+    executions; 8 teacher-forced decode steps on the engine's cache layout
+    within ``LOGIT_TOL`` of the largest logit; rwkv6-7b's engine serving
+    with a shadow lane (rate 0.25) the tokens it serves without one. Then
+    ``truncate(native_fp8=True)`` of h2o-danube-1.8b on the shards: its loss
+    bit-equal to the emulated one on the same shards and within 1e-3 of one
+    rank's native loss, fp8 launches a rank = matched dot site executions.
+    The phase's seconds run from its first rank's start to the checks'
+    end."""
+    world = len(ranks)
+    counts = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    for i, r in enumerate(ranks):
+        for f in r["families"]:
+            b = f["bytes"]
+            check(b["halves"] and b["as_rules"] and b["sharded_leaves"]
+                  and f["rank_param_bytes"] == b["sharded_local"]
+                  + b["replicated_bytes"],
+                  "sharded families: layout", i, f["arch"], b)
+            check(f["static_launches"] == f["matched_site_executions"] > 0
+                  and f["dynamic_launches"] == 0,
+                  "sharded families: launches", i, f["arch"], f)
+            check(math.isfinite(f["loss"]) and math.isfinite(
+                f["loss_truncated"]), "sharded families: finite", i, f)
+        fp8 = r["fp8"]
+        check(fp8["fp8_launches"] == fp8["matched_dot_site_executions"] > 0
+              and fp8["loss_native"] == fp8["loss_emulated"],
+              "sharded families: fp8 on shards", i, fp8)
+    first = ranks[0]
+    for f in first["families"]:
+        check(abs(f["loss"] - f["loss_one_rank"])
+              <= 1e-3 * abs(f["loss_one_rank"])
+              and f["grads_finite"] and f["grad_rel_l2"] <= LOGIT_TOL,
+              "sharded families: loss and gradients", f["arch"], f)
+        check(f["forced"]["ratio"] <= LOGIT_TOL,
+              "sharded families: teacher-forced logits", f["arch"],
+              f["forced"])
+        if f["arch"] == shadowed:
+            sh = f["shadow"]
+            check(sh["tokens_equal"] and sh["shadowed_requests"] > 0
+                  and sh["report_sites"] > 0,
+                  "sharded families: shadow lane", sh)
+    fp8 = first["fp8"]
+    check(abs(fp8["loss_native"] - fp8["loss_native_one_rank"])
+          <= FP8_LOSS_RTOL * abs(fp8["loss_native_one_rank"]),
+          "sharded families: fp8 against one rank", fp8)
+    seconds = round(time.time() - min(r["started"] for r in ranks), 1)
+    emit(phase, world=world, backend="gloo", device="cuda:0",
+         mesh=[1, 2], seq=SF_SEQ, families=[r["families"] for r in ranks],
+         fp8=[r["fp8"] for r in ranks],
+         peak_gb=[r["peak_gb"] for r in ranks], launches=counts,
+         seconds=seconds)
     return counts
 
 
@@ -4614,7 +5021,8 @@ def main():
                                         "artifact_path,models_path,"
                                         "serve_path,train_path,"
                                         "grad_profile_path,fp8_path,"
-                                        "guard_path,sharded_path")
+                                        "guard_path,sharded_path,"
+                                        "sharded_families")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -4683,10 +5091,25 @@ def main():
         counts["fp8_dot"] = by_path["fp8_path"]["fp8_dot"]
     if "guard_path" in phases:
         by_path["guard_path"] = phase_guard_path(device, args.layers)
+    # the sharded phases share two spawned ranks, alone after the others
+    meshes = SHARDED_MESHES + ((FSDP_MESH,) if "sharded_fsdp" in phases
+                               else ())
+    jobs = [(p, a) for p, a in (
+        ("sharded_path", (args.layers or SHARDED_SERVE_LAYERS,
+                          args.layers or SHARDED_TRAIN_LAYERS, meshes)),
+        ("sharded_families", ()), ("sharded_families_f32", ()))
+        if p in phases]
+    if jobs:
+        ranks, spawned = run_mesh_ranks(jobs)
     if "sharded_path" in phases:
         by_path["sharded_path"] = phase_sharded_path(
-            args.layers, SHARDED_MESHES
-            + ((FSDP_MESH,) if "sharded_fsdp" in phases else ()))
+            ranks["sharded_path"], spawned, meshes)
+    if "sharded_families" in phases:
+        by_path["sharded_families"] = phase_sharded_families(
+            ranks["sharded_families"])
+    if "sharded_families_f32" in phases:
+        phase_sharded_families(ranks["sharded_families_f32"],
+                               "sharded_families_f32", shadowed=None)
     if "train_lr" in phases:
         phase_train_lr(device, args.layers)
     if "small_ref" in phases:
@@ -4765,7 +5188,8 @@ def main():
                     "fp8_path": ("fp8_dot",),
                     "guard_path": ("quantize_em_dynamic",),
                     "sharded_path": ("quantize_em_static",
-                                     "quantize_em_dynamic")}
+                                     "quantize_em_dynamic"),
+                    "sharded_families": ("quantize_em_static", "fp8_dot")}
     for path, names in path_kernels.items():
         if path in phases:
             check(all(by_path[path][n] > 0 for n in names), path, summary)

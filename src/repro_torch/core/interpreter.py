@@ -99,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import threading
 from typing import Any, Dict, List, Optional, Tuple
@@ -347,6 +348,18 @@ def _enter(frame: _Frame):
         hook = _tls.on_step
         if hook is not None:
             hook()
+
+
+@contextlib.contextmanager
+def aside():
+    """Code run aside from the program (a dry run on meta tensors): frames
+    of its own from a fresh root, and no trajectory step."""
+    saved = _tls.frames, _tls.on_step
+    _tls.frames, _tls.on_step = None, None
+    try:
+        yield
+    finally:
+        _tls.frames, _tls.on_step = saved
 
 
 @contextlib.contextmanager
@@ -633,14 +646,29 @@ def remat(fn, *args):
                       preserve_rng_state=False)
 
 
+def _mesh_of(x):
+    return x.device_mesh if _shd._is_dtensor(x) else None
+
+
+def _as_output(mesh, g):
+    """The cotangent ``g`` of an output on ``mesh``: autograd materialises
+    the zero cotangent of an unused DTensor output as a plain tensor of its
+    global shape, which on a mesh is every rank's whole (replicated)
+    value."""
+    if mesh is None or _shd._is_dtensor(g):
+        return g
+    return _shd.replicate_on(mesh, g)
+
+
 class _LoopConst(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
+        ctx.mesh = _mesh_of(x)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return _as_output(ctx.mesh, g)
 
 
 def loop_const(x):
@@ -664,13 +692,13 @@ def _formulas_walk() -> bool:
 class _ZeroCotangents(torch.autograd.Function):
     @staticmethod
     def forward(ctx, out, *xs):
-        ctx.like = [(x.shape, x.dtype, x.device,
-                     x.device_mesh if _shd._is_dtensor(x) else None)
-                    for x in xs]
+        ctx.like = [(x.shape, x.dtype, x.device, _mesh_of(x)) for x in xs]
+        ctx.mesh = _mesh_of(out)
         return out.view_as(out)
 
     @staticmethod
     def backward(ctx, g):
+        g = _as_output(ctx.mesh, g)
         if not _formulas_walk():
             return (g,) + (None,) * len(ctx.like)
         # on a mesh, the zeros every rank holds whole
@@ -1098,6 +1126,20 @@ class _WalkMode(TorchDispatchMode):
         return val
 
 
+def _f32_dot(func, a, b, dtype):
+    """``func(a, b)`` (``mm`` / ``bmm``) with its sums in ``dtype``: in the
+    operands' own dtype the op itself, in f32 the product of the operands
+    widened (exact products of bf16 values), TF32 off."""
+    if dtype == a.dtype:
+        return func(a, b)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return func(a.to(dtype), b.to(dtype))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 class _PolicyMode(_WalkMode):
     """Formats fixed by the policy: the original op-mode transform. ``plan``
     memoises the rule decided for every (site key) of one input signature,
@@ -1117,6 +1159,8 @@ class _PolicyMode(_WalkMode):
         self.live = self.formulas = bool(policy.rules)
         self.native_fp8 = native_fp8
         self._fp8 = None            # the native format of the op about to run
+        # whether the op about to run is an emulated dot on DTensors
+        self._on_shards = False
 
     def _rule(self, frame, pos, out_idx, prim, dtype):
         key = (frame.path, pos, out_idx)
@@ -1139,6 +1183,9 @@ class _PolicyMode(_WalkMode):
                     if self._fp8 is None:
                         args = tuple(_maybe_quantize(a, rule0, self.impl)
                                      for a in args)
+                        self._on_shards = (func in _fp8.ATEN_DOTS
+                                           and not kwargs and self.sharded
+                                           and _shd.any_dtensor(args))
             return args, kwargs, ()
         wired = _wired_row(func, prim, args)
         if wired is None:
@@ -1170,18 +1217,20 @@ class _PolicyMode(_WalkMode):
         fmt = parse_format(rule.fmt)
         if not _fp8.is_native_fp8_format(fmt):
             return None
-        if any(_shd._is_dtensor(a) for a in args):
-            raise NotImplementedError(
-                "native_fp8 on DTensor operands is not ported: the fp8 dot "
-                "kernel takes whole tensors (gather the parameters, or "
-                "truncate without native_fp8)")
         return fmt
 
     def run(self, func, args, kwargs, mutates):
         fmt, self._fp8 = self._fp8, None
+        shards, self._on_shards = self._on_shards, False
         if fmt is not None:
             return _fp8.fp8_aten_dot(func, args, saturate=fmt.saturate,
                                      impl=self.impl)
+        if shards:
+            # the emulated product on shards sums as the native one does:
+            # f32 partial sums, rounded once
+            return _shd.dot_on_shards(functools.partial(_f32_dot, func),
+                                      *args, _fp8.ATEN_DOTS[func],
+                                      args[0].dtype)
         return func(*args, **kwargs)
 
     def on_output(self, frame, pos, out_idx, prim, val):

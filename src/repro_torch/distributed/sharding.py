@@ -35,8 +35,10 @@ candidate axis of a swept table batch is what a sweep divides between ranks
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from typing import Any, Dict, Optional, Tuple, Union
@@ -485,16 +487,22 @@ class _Relayout(torch.autograd.Function):
         return g, None, None, None, None
 
 
-_EINSUM_OPS: dict = {}
+_META_OPS: dict = {}
 
 
-def _einsum_ops(spec: str, *xs) -> tuple:
-    """The aten ops ``torch.einsum(spec, *xs)`` issues, from a run on meta
-    tensors of ``xs``' shapes and strides (a DTensor's are its global
-    value's): they depend on which dimensions can be viewed together."""
+def _meta_ops(name: str, fn, *xs, shapes=None) -> tuple:
+    """The aten ops ``fn(*xs)`` issues, from a run on meta tensors of
+    ``xs``' shapes (or ``shapes``), strides and dtypes (a DTensor's are its
+    global value's), cached under ``name``: they depend on which dimensions
+    can be viewed together. The run is no part of the program: it enters
+    frames of its own (``core.interpreter.aside``) and a walk gives its ops
+    no site."""
     from torch.utils._python_dispatch import TorchDispatchMode
-    key = (spec,) + tuple((tuple(x.shape), tuple(x.stride())) for x in xs)
-    ops = _EINSUM_OPS.get(key)
+    from repro_torch.core.interpreter import aside
+    shapes = shapes or [tuple(x.shape) for x in xs]
+    key = (name,) + tuple((s, tuple(x.stride()), x.dtype)
+                          for s, x in zip(shapes, xs))
+    ops = _META_OPS.get(key)
     if ops is None:
         seen = []
 
@@ -502,14 +510,19 @@ def _einsum_ops(spec: str, *xs) -> tuple:
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 seen.append(func)
                 return func(*args, **(kwargs or {}))
-        with collective():
-            metas = [torch.empty_strided(tuple(x.shape), tuple(x.stride()),
+        with collective(), aside():
+            metas = [torch.empty_strided(s, tuple(x.stride()),
                                          dtype=x.dtype, device="meta")
-                     for x in xs]
+                     for s, x in zip(shapes, xs)]
             with _Record():
-                torch.einsum(spec, *metas)
-        ops = _EINSUM_OPS[key] = tuple(seen)
+                fn(*metas)
+        ops = _META_OPS[key] = tuple(seen)
     return ops
+
+
+def _einsum_ops(spec: str, *xs) -> tuple:
+    """The aten ops ``torch.einsum(spec, *xs)`` issues."""
+    return _meta_ops(spec, functools.partial(torch.einsum, spec), *xs)
 
 
 def local_einsum(spec: str, a, b):
@@ -590,6 +603,149 @@ def local_einsum(spec: str, a, b):
                       for c in labels], run_check=False)
 
 
+# ``on_shards`` calls by (name, "shards" | "global"): whether each ran on
+# the ranks' pieces or, its ops differing there, on the DTensors
+ON_SHARDS: collections.Counter = collections.Counter()
+
+
+def on_shards(name: str, fn, operands, labels: str, out: str,
+              repeats=None):
+    """``fn(*operands)`` of DTensor operands run on each rank's shards, for
+    a function that computes each index of its outputs' labels from the
+    same index of its operands' (a recurrence over time, per head or per
+    channel: RWKV-6's and Mamba's scans). ``labels`` names each operand's
+    dimensions, one letter each and comma-separated (``"bshd,hd"``),
+    ``out`` each output's; ``fn`` returns a tuple.
+
+    A mesh axis splits the label the first operand sharded over it is split
+    on, if every output carries that label and the axis divides it; the
+    operands are then cut into this rank's pieces of it (a replicated one
+    locally, ``Partial`` terms reduced first), and the outputs are those
+    pieces' results, laid out on it. The program's ops are the same, run on
+    plain tensors: under DTensor's dispatch a Python loop of thousands of
+    small steps costs seconds. Where the pieces' run would issue other ops
+    than the global one (a run on meta tensors of both, cached under
+    ``name``; a dimension of one lets a reshape view what it copies), or
+    no operand is a DTensor, ``fn`` runs on the operands as they are.
+    ``repeats=(label, n)`` names the label along which ``fn`` repeats one
+    body every ``n`` entries (a scan's chunks): the meta runs take two such
+    bodies of it, not thousands of steps."""
+    ref = next((x for x in operands if _is_dtensor(x)), None)
+    if ref is None:
+        return fn(*operands)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = ref.device_mesh
+    operands = [settled(replicate_like(ref, x)) for x in operands]
+    ins, outs = labels.split(","), out.split(",")
+    size = {c: n for x, lx in zip(operands, ins) for c, n in zip(lx, x.shape)}
+    chosen = []                 # the label each mesh axis splits, or None
+    for md in range(mesh.ndim):
+        n = mesh.size(md)
+        split = [lx[x.placements[md].dim] for x, lx in zip(operands, ins)
+                 if x.placements[md].is_shard()]
+        c = split[0] if split else None
+        if c is not None and (c in chosen or size[c] % n
+                              or any(c not in lo for lo in outs)):
+            c = None
+        chosen.append(c)
+
+    def piece(x, lx):
+        want = [Shard(lx.index(c)) if c and c in lx else Replicate()
+                for c in chosen]
+        with collective():
+            if list(x.placements) != want:
+                x = x.redistribute(mesh, want)
+            # an operand without a split label is read whole by every
+            # rank, for its own pieces: its cotangent is a partial sum
+            return x.to_local(grad_placements=[
+                Partial() if c and c not in lx else p
+                for c, p in zip(chosen, want)])
+    pieces = [piece(x, lx) for x, lx in zip(operands, ins)]
+
+    def cut(xs):
+        if repeats is None:
+            return None
+        c, n = repeats
+        return [tuple(min(k, 2 * n) if d == c else k
+                      for d, k in zip(lx, x.shape))
+                for x, lx in zip(xs, ins)]
+    if (_meta_ops(name, fn, *pieces, shapes=cut(pieces))
+            != _meta_ops(name, fn, *operands, shapes=cut(operands))):
+        ON_SHARDS[name, "global"] += 1
+        return fn(*operands)
+    ON_SHARDS[name, "shards"] += 1
+    res = fn(*pieces)
+    with collective():
+        return tuple(_dtensor_type().from_local(
+            o, mesh, [Shard(lo.index(c)) if c else Replicate()
+                      for c in chosen], run_check=False)
+            for o, lo in zip(res, outs))
+
+
+# which split of a contraction's operands a mesh axis keeps, first to last
+_DOT_ROLES = ("c", "b", "fl", "fr")
+
+
+def dot_on_shards(dot, lhs, rhs, dimension_numbers, out_dtype):
+    """A two-operand contraction of DTensor operands run on each rank's
+    pieces: ``dot(l, r, dtype)`` computes this rank's product of its pieces
+    in ``dtype`` (lax's ``dimension_numbers``; the result's axes are the
+    batch axes, then the lhs's free axes, then the rhs's).
+
+    Each mesh axis splits what the operands split there: a contracted
+    dimension (a row-parallel product: the ranks' products are f32 partial
+    sums, reduced before the one rounding to ``out_dtype``), else a batch
+    dimension, else a free one of the lhs (the batch rows), else one of the
+    rhs (a column-parallel product: this rank's products are its shard of
+    the result, rounded where they are made). The other operand is laid out
+    to match: a replicated one cut locally, ``Partial`` terms reduced
+    first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    lhs = settled(replicate_like(rhs, lhs))
+    rhs = settled(replicate_like(lhs, rhs))
+    mesh = lhs.device_mesh
+    (lc, rc), (lb, rb) = dimension_numbers
+    lf = [d for d in range(lhs.ndim) if d not in lc and d not in lb]
+    rf = [d for d in range(rhs.ndim) if d not in rc and d not in rb]
+
+    def role(p, contract, batch, free, side):
+        if not p.is_shard():
+            return None
+        if p.dim in contract:
+            return ("c", contract.index(p.dim))
+        if p.dim in batch:
+            return ("b", batch.index(p.dim))
+        return ("f" + side, free.index(p.dim))
+    want_l, want_r, out = [], [], []
+    for pl, pr in zip(lhs.placements, rhs.placements):
+        roles = [r for r in (role(pl, lc, lb, lf, "l"),
+                             role(pr, rc, rb, rf, "r")) if r is not None]
+        kind, i = min(roles, key=lambda r: _DOT_ROLES.index(r[0]),
+                      default=(None, 0))
+        want_l.append(Shard(lc[i]) if kind == "c" else Shard(lb[i])
+                      if kind == "b" else Shard(lf[i]) if kind == "fl"
+                      else Replicate())
+        want_r.append(Shard(rc[i]) if kind == "c" else Shard(rb[i])
+                      if kind == "b" else Shard(rf[i]) if kind == "fr"
+                      else Replicate())
+        out.append(Partial() if kind == "c" else Shard(i) if kind == "b"
+                   else Shard(len(lb) + i) if kind == "fl"
+                   else Shard(len(lb) + len(lf) + i) if kind == "fr"
+                   else Replicate())
+    with collective():
+        a = (lhs if list(lhs.placements) == want_l
+             else lhs.redistribute(mesh, want_l)).to_local()
+        b = (rhs if list(rhs.placements) == want_r
+             else rhs.redistribute(mesh, want_r)).to_local()
+    partial = any(p.is_partial() for p in out)
+    o = dot(a, b, torch.float32 if partial else out_dtype)
+    with collective():
+        o = _dtensor_type().from_local(o, mesh, out, run_check=False)
+    if not partial:
+        return o
+    return map_local(lambda t: t.to(out_dtype), settled(o))
+
+
 def einsum_layout(spec: str, a, b):
     """``(a, b, lay_out)`` for ``torch.einsum(spec, a, b)`` of DTensor
     operands that ``local_einsum`` does not take. DTensor (torch 2.11's)
@@ -629,6 +785,48 @@ def einsum_layout(spec: str, a, b):
     return whole(a), whole(b), lay_out
 
 
+def _whole_groups(x, dim: int, groups: int):
+    from torch.distributed.tensor import Replicate
+    dim %= x.ndim
+    want = [Replicate() if p.is_shard(dim) and groups % n else p
+            for p, n in zip(x.placements, x.device_mesh.shape)]
+    if want == list(x.placements):
+        return x
+    with collective():
+        return x.redistribute(x.device_mesh, want)
+
+
+class _WholeGroupsGrad(torch.autograd.Function):
+    """The identity, whose cotangent is laid out as ``_whole_groups``
+    lays out its input."""
+
+    @staticmethod
+    def forward(ctx, x, dim, groups):
+        ctx.args = dim, groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_groups(g, *ctx.args), None, None
+
+
+def whole_groups(x, dim: int, groups: int):
+    """``x`` laid out so that dimension ``dim`` splits into ``groups``
+    groups on each rank (the heads of a flattened ``heads * head_dim``),
+    and so is its cotangent: a mesh axis that shards ``dim`` into a number
+    of pieces that does not divide ``groups`` is replicated, as DTensor
+    refuses to unflatten an uneven split (hymba's 25 heads on a model axis
+    of two). The weight stays split; its product is gathered, as GSPMD's
+    reshape gathers it. Anything else as it is."""
+    if not _is_dtensor(x):
+        return x
+    x = _whole_groups(x, dim, groups)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    with collective():
+        return _WholeGroupsGrad.apply(x, dim, groups)
+
+
 def local_parts(x):
     """``(local shard, placements)`` of a DTensor, ``(x, None)`` for
     anything else. A ``Partial`` DTensor raises: its local tensor is a term
@@ -652,6 +850,25 @@ def map_local(fn, x):
     local, placements = local_parts(x)
     out = fn(local)
     return x if out is local else like(x, out)
+
+
+def pointwise(fn, x):
+    """``fn``, an elementwise function, of ``x``: on a DTensor, ``fn`` of
+    its local shard (``Partial`` terms reduced first), laid out as ``x``
+    and differentiable through both, where DTensor (torch 2.11's, the
+    card's) has no sharding strategy for one of ``fn``'s ops (``ne``);
+    ``fn(x)`` for anything else. The program's ops are ``fn``'s either
+    way."""
+    if not _is_dtensor(x):
+        return fn(x)
+    x = settled(x)
+    with collective():
+        local = x.to_local()
+    out = fn(local)
+    with collective():
+        return _dtensor_type().from_local(
+            out, x.device_mesh, x.placements, run_check=False,
+            shape=x.shape, stride=x.stride())
 
 
 def constrain(x, *logical: Optional[str]):
@@ -712,6 +929,18 @@ def batch_sharding(mesh, axis: str = "data") -> NamedSharding:
     if axis not in mesh_shape(mesh):
         return replicated(mesh)
     return NamedSharding(mesh, P(axis))
+
+
+def place_batch(batch: dict, mesh, axis: str = "data") -> dict:
+    """A model's batch (every rank's copy of the global one) laid out over
+    ``axis``, each leaf over its batch dimension: the first, but for
+    M-RoPE's ``positions`` (3, B, S), whose second it is."""
+    def spec(k):
+        if axis not in mesh_shape(mesh):
+            return P()
+        return P(None, axis) if k == "positions" else P(axis)
+    return {k: place(v, NamedSharding(mesh, spec(k)))
+            for k, v in batch.items()}
 
 
 def probe_axis_size(mesh, axis: str = "probe") -> int:
@@ -869,6 +1098,15 @@ def redistribute_as(x, ref):
         return x
     with collective():
         return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def layout_like(tree, ref):
+    """Every DTensor leaf of ``tree`` laid out as the DTensor leaf of
+    ``ref`` in its place (``Partial`` terms reduced as they go): a decode
+    step's new cache in its input's layout, tick after tick."""
+    return pytree.tree_map(
+        lambda x, r: redistribute_as(x, r)
+        if _is_dtensor(x) and _is_dtensor(r) else x, tree, ref)
 
 
 def place_as(x, ref):

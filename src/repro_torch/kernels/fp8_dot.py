@@ -301,10 +301,20 @@ def fp8_dot_general(lhs, rhs, dimension_numbers, *, saturate: bool = True,
 
 def fp8_aten_dot(func, args, *, saturate: bool, impl: str = "auto"):
     """One ``aten.mm`` / ``aten.bmm`` call on the native path: the result
-    in the operands' dtype, as the op gives it."""
+    in the operands' dtype, as the op gives it. DTensor operands run on
+    each rank's pieces (``sharding.dot_on_shards``): a column-parallel
+    product gives this rank's shard of the result, a row-parallel one f32
+    partial sums, reduced before the one rounding."""
+    from repro_torch.distributed import sharding as shd
     lhs, rhs = args
-    return fp8_dot_general(lhs, rhs, ATEN_DOTS[func], saturate=saturate,
-                           out_dtype=lhs.dtype, impl=impl)
+    dims = ATEN_DOTS[func]
+
+    def dot(a, b, out_dtype):
+        return fp8_dot_general(a, b, dims, saturate=saturate,
+                               out_dtype=out_dtype, impl=impl)
+    if shd.any_dtensor(args):
+        return shd.dot_on_shards(dot, lhs, rhs, dims, lhs.dtype)
+    return dot(lhs, rhs, lhs.dtype)
 
 
 __all__ = ["F8_DTYPE", "K_TILE", "ROUTE", "is_native_fp8_format",

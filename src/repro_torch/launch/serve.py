@@ -13,9 +13,9 @@ serving layout) on the host mesh of the running process group
 (``make_host_mesh(model_parallel=2)``: ``(1, 2)`` on two ranks), or on the
 shape of a one-device mesh when there is none: every spec then resolves to
 replicated and the tensors stay as they are. On a mesh of several ranks
-every rank holds its shards of the parameters and of the key / value
-cache, runs the decode step on them (tensor parallelism) and serves the
-same tokens.
+every rank holds its shards of the parameters and of the decode cache (any
+``--arch``), runs the decode step on them (tensor parallelism) and serves
+the same tokens; a shadowed tick runs on gathered inputs.
 
 Requests stream in with mixed prompt lengths and token budgets; the engine
 admits each one into any free decode slot while the other slots keep

@@ -20,6 +20,7 @@ from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import Model
 from repro_torch.models.common import ParamDef, map_defs, torch_dtype
+from repro_torch.models.transformer import CACHE_AXES_BY_KEY
 
 
 def abstract(shape, dtype, sharding: Optional[shd.NamedSharding] = None):
@@ -148,21 +149,6 @@ def opt_state_specs(model: Model, mesh, state_dtype: str = "float32",
     }
 
 
-_CACHE_AXES_BY_KEY = {
-    "k": ("batch", "kv_heads", "cache_seq", None),
-    "v": ("batch", "kv_heads", "cache_seq", None),
-    "c_kv": ("batch", "cache_seq", None),
-    "k_rope": ("batch", "cache_seq", None),
-    "conv": ("batch", None, "mlp"),
-    "ssm": ("batch", "mlp", "state"),
-    "tm_state": ("batch", "heads", None, None),
-    "tm_shift": ("batch", None, "embed"),
-    "cm_shift": ("batch", None, "embed"),
-    "cross_k": ("batch", "kv_heads", "cache_seq", None),
-    "cross_v": ("batch", "kv_heads", "cache_seq", None),
-}
-
-
 def cache_specs(model: Model, shape: InputShape, mesh):
     """Abstract decode cache (``Model.init_cache`` on the ``meta`` device)
     with context-parallel-aware shardings."""
@@ -174,13 +160,13 @@ def cache_specs(model: Model, shape: InputShape, mesh):
         key = None
         for p in reversed(path):
             name = getattr(p, "key", None)
-            if isinstance(name, str) and name in _CACHE_AXES_BY_KEY:
+            if isinstance(name, str) and name in CACHE_AXES_BY_KEY:
                 key = name
                 break
         if mesh is None or key is None:
             out.append(abstract(t.shape, t.dtype))
             continue
-        axes = _CACHE_AXES_BY_KEY[key]
+        axes = CACHE_AXES_BY_KEY[key]
         # stacked layer caches carry a leading (L,) dim
         if t.dim() == len(axes) + 1:
             axes = ("layers",) + axes

@@ -39,8 +39,8 @@ two ranks, ``(2, 2)`` on four), and the parameters and the optimizer state
 are placed FSDP x TP under ``DEFAULT_PARAM_RULES``: every rank holds its
 shards (DTensors), the batch is laid out over the data axis, and the step is
 the global program's, so its loss and gradients are the mean over the
-global batch (the families ported to a mesh: dense and MoE GQA; the others
-raise). Every rank takes part in a checkpoint's gather, rank 0 writes it.
+global batch, for any ``--arch``. Every rank takes part in a checkpoint's
+gather, rank 0 writes it.
 ``--multi-pod`` builds the 512-device production mesh and raises, naming
 the count, on fewer ranks.
 """
@@ -238,8 +238,7 @@ def _main(args, device, n_layers):
         if mesh is None:
             return batch
         # every rank draws the global batch and keeps its rows
-        return {k: shd.place(v, shd.batch_sharding(mesh))
-                for k, v in batch.items()}
+        return shd.place_batch(batch, mesh)
 
     params = model.init(seed=0, device=device)
     if mesh is not None:

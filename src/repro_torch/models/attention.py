@@ -25,7 +25,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import constrain, replicate_like
+from repro_torch.distributed.sharding import (
+    constrain, replicate_like, whole_groups,
+)
 from repro_torch.core.interpreter import (
     loop_body, loop_const, remat, scope, zero_cotangents,
 )
@@ -225,9 +227,9 @@ def _project_qkv(p, x, cfg: ArchConfig, positions):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, H, hd).permute(0, 2, 1, 3)
-    k = k.reshape(B, S, Hkv, hd).permute(0, 2, 1, 3)
-    v = v.reshape(B, S, Hkv, hd).permute(0, 2, 1, 3)
+    q = whole_groups(q, -1, H).reshape(B, S, H, hd).permute(0, 2, 1, 3)
+    k = whole_groups(k, -1, Hkv).reshape(B, S, Hkv, hd).permute(0, 2, 1, 3)
+    v = whole_groups(v, -1, Hkv).reshape(B, S, Hkv, hd).permute(0, 2, 1, 3)
     if cfg.rope_type == "rope":
         q = common.apply_rope(q, positions, theta=cfg.rope_theta,
                               fraction=cfg.rope_fraction)
@@ -254,7 +256,8 @@ def gqa_forward(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
         o = flash_attention(q, k, v, causal=causal, window=window)
         o = constrain(o, "batch", "heads", "seq", None)
     with scope("proj"):
-        o = o.permute(0, 2, 1, 3).reshape(B, S, -1)
+        o = whole_groups(o.permute(0, 2, 1, 3).reshape(B, S, -1), -1,
+                         cfg.n_heads)
         out = o @ p["wo"].to(x.dtype)
         out = constrain(out, "batch", "seq", "embed")
     return out, (k, v)
@@ -383,8 +386,9 @@ def mla_decode(p, x1, cache, pos, cfg: ArchConfig):
     q_nope, q_rope = _mla_q(p, x1, cfg, positions)     # (B,H,1,dn),(B,H,1,dr)
     c_new, kr_new = _mla_latent(p, x1, cfg, positions)
     S = cache["c_kv"].shape[1]
-    onehot = (torch.arange(S, device=x1.device)[None, :]
-              == pos_b[:, None])[..., None]                 # (B,S,1)
+    pos_b = replicate_like(cache["c_kv"], pos_b)
+    onehot = (replicate_like(pos_b, torch.arange(S, device=x1.device))[
+        None, :] == pos_b[:, None])[..., None]                  # (B,S,1)
     c_cache = _write_slot(cache["c_kv"], c_new, onehot)
     r_cache = _write_slot(cache["k_rope"], kr_new, onehot)
 
@@ -400,7 +404,7 @@ def mla_decode(p, x1, cache, pos, cfg: ArchConfig):
     s = s + common.einsum("bhd,bsd->bhs", q_rope[:, :, 0].to(f32),
                           r_cache.to(f32))
     s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
-    idx = torch.arange(S, device=x1.device)
+    idx = replicate_like(pos_b, torch.arange(S, device=x1.device))
     s = torch.where(idx[None, None, :] <= pos_b[:, None, None], s, NEG_INF)
     pr = common.softmax(s, dim=-1)
     ctx_lat = common.einsum("bhs,bsl->bhl", pr, c_cache.to(f32))

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.interpreter import _formulas_walk, scope, shared_body
 from repro_torch.distributed.sharding import (
-    _is_dtensor, einsum_layout, local_einsum, replicate_like,
+    _is_dtensor, einsum_layout, local_einsum, pointwise, replicate_like,
 )
 
 
@@ -222,11 +222,13 @@ def softplus(x):
     """The reference's ``logaddexp(x, 0)``, step for step: max, sub, add,
     abs, neg, exp, log1p, add, select. Differentiated in a walk that
     follows the reference's derivative formulas, by its JVP
-    (``_Softplus``); a plain run keeps autograd's."""
+    (``_Softplus``); a plain run keeps autograd's. On a DTensor it runs on
+    the local shard (``sharding.pointwise``): torch 2.11's DTensor has no
+    strategy for its ``ne``."""
     with shared_body("softplus", x) as (x,):
         if x.requires_grad and torch.is_grad_enabled() and _formulas_walk():
-            return _Softplus.apply(x)
-        return _logaddexp0(x)
+            return pointwise(_Softplus.apply, x)
+        return pointwise(_logaddexp0, x)
 
 
 class _Tanh(torch.autograd.Function):
@@ -320,7 +322,8 @@ def apply_mrope(x, positions, *, theta: float, sections: Sequence[int]):
     d = x.shape[-1]
     rd = 2 * sum(sections)
     assert rd <= d, (rd, d)
-    inv = rope_freqs(rd, theta, x.device)                          # (rd/2,)
+    inv = replicate_like(x, rope_freqs(rd, theta, x.device))       # (rd/2,)
+    positions = replicate_like(x, positions)
     ang_thw = positions.to(torch.float32)[:, :, None, :, None] * inv
     bounds = [0]
     for n in sections:

@@ -25,7 +25,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.interpreter import (loop_body, loop_const, scope,
                                           zero_cotangents)
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, lookup
 from repro_torch.models import attention
 from repro_torch.models.common import ParamDef, resolve_device, torch_dtype
 from repro_torch.models.transformer import (
@@ -147,7 +147,8 @@ def forward(params, batch, cfg: ArchConfig, last_only: bool = False):
     """batch: src_embeds (B,T,d), tokens (B,S) -> logits (B,S,V)."""
     memory = encode(params, batch["src_embeds"], cfg)
     with scope("embed"):
-        x = params["embed"].to(torch_dtype(cfg.dtype))[batch["tokens"]]
+        x = lookup(params["embed"].to(torch_dtype(cfg.dtype)),
+                   batch["tokens"])
     x = constrain(x, "batch", "seq", "embed")
     B, S = x.shape[:2]
     positions = _positions({}, cfg, S, B, x.device)
@@ -206,7 +207,8 @@ def decode_step(params, cache, tokens, cfg: ArchConfig):
     vocab), new cache)``; the input cache is left unchanged."""
     pos = cache["pos"]
     with scope("embed"):
-        x = params["embed"].to(torch_dtype(cfg.dtype))[tokens][:, None]
+        x = lookup(params["embed"].to(torch_dtype(cfg.dtype)),
+                   tokens)[:, None]
     x = constrain(x, "batch", "seq", "embed")
     outs = []
     for i in range(cfg.n_layers):

@@ -2,7 +2,6 @@
 decode."""
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Dict
 
 import torch
@@ -16,40 +15,16 @@ from repro_torch.models.common import (
 )
 
 
-def _sharded_family(cfg: ArchConfig) -> bool:
-    """The families whose programs run on sharded parameters: dense GQA
-    and MoE (olmoe-1b-7b) without M-RoPE."""
-    return (cfg.family in ("dense", "moe") and cfg.attn_type == "gqa"
-            and cfg.rope_type != "mrope")
-
-
-def on_mesh(cfg: ArchConfig, *trees):
-    """The context a model's program runs in. On DTensor parameters (or
-    inputs) the program runs on the shards; the families not ported to a
-    mesh of more than one rank raise ``NotImplementedError`` there."""
-    mesh = next((x.device_mesh for x in _iter_dtensors(trees)), None)
-    if mesh is not None and mesh.size() > 1 and not _sharded_family(cfg):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}, {cfg.attn_type} attention, "
-            f"{cfg.rope_type} positions) on a mesh of {mesh.size()} ranks "
-            f"{dict(_shd.mesh_shape(mesh))}: sharded parameters are ported "
-            "for the dense and MoE GQA families only")
-    return contextlib.nullcontext()
-
-
-def _iter_dtensors(trees):
-    from torch.utils import _pytree as pytree
-    return (x for x in pytree.tree_leaves(trees) if _shd._is_dtensor(x))
-
-
 class Model:
     """A thin, stateless namespace of pure functions bound to ``cfg``.
     Parameters are a plain nested dict (and, for leading dense layers, list)
     of tensors with each layer stack on a leading (L, ...) axis — the
     reference package's layout, so its parameters carry over through
     ``models.convert.params_from_jax``. They may be DTensors laid out on a
-    mesh (``place_params``): the program then runs on the shards
-    (``on_mesh``)."""
+    mesh (``place_params``), for every family: the program then runs on
+    the shards, DTensor keeping its semantics global, and the recurrences
+    of RWKV-6 and Mamba run on each rank's heads or channels
+    (``sharding.on_shards``)."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -103,18 +78,15 @@ class Model:
 
     # ---- execution --------------------------------------------------------
     def loss(self, params, batch):
-        with on_mesh(self.cfg, params, batch):
-            return self._mod.loss_fn(params, batch, self.cfg)
+        return self._mod.loss_fn(params, batch, self.cfg)
 
     def forward(self, params, batch):
-        with on_mesh(self.cfg, params, batch):
-            return self._mod.forward(params, batch, self.cfg)
+        return self._mod.forward(params, batch, self.cfg)
 
     def prefill(self, params, batch):
         """Last-token logits (B, vocab) of a full prompt."""
-        with on_mesh(self.cfg, params, batch):
-            return self._mod.forward(params, batch, self.cfg,
-                                     last_only=True)[:, 0]
+        return self._mod.forward(params, batch, self.cfg,
+                                 last_only=True)[:, 0]
 
     def init_cache(self, batch_size: int, seq_len: int, *, device=None):
         """The decode cache for ``batch_size`` slots of ``seq_len`` tokens,
@@ -124,9 +96,14 @@ class Model:
                                     device=device)
 
     def place_cache(self, cache, mesh):
-        """A decode cache laid out on ``mesh`` by the activation rules
-        (``DEFAULT_ACT_RULES``): the key / value caches over ``kv_heads``,
-        as the attention's keys and values are."""
+        """A decode cache of any family laid out on ``mesh`` by the
+        activation rules (``DEFAULT_ACT_RULES``) and each leaf's logical
+        axes (``transformer.cache_axes``, the reference's
+        ``_CACHE_AXES_BY_KEY``): the key / value caches (and the
+        encoder-decoder's cross memory) over ``kv_heads``, or over
+        ``cache_seq`` where the heads do not divide; MLA's latents over
+        ``cache_seq``; Mamba's states over ``mlp``; RWKV-6's state over
+        ``heads`` and its shifts over ``embed``."""
         rules = _shd.DEFAULT_ACT_RULES
 
         def walk(axes, t):
@@ -139,9 +116,11 @@ class Model:
         return walk(transformer.cache_axes(cache), cache)
 
     def decode_step(self, params, cache, tokens, embeds=None):
-        """One token for every slot: ``(logits (B, vocab), new cache)``."""
-        with on_mesh(self.cfg, params, cache, tokens):
-            if self.cfg.family == "encdec":
-                return encdec.decode_step(params, cache, tokens, self.cfg)
-            return transformer.decode_step(params, cache, tokens, self.cfg,
-                                           embeds=embeds)
+        """One token for every slot: ``(logits (B, vocab), new cache)``; on
+        a mesh the new cache is laid out as ``cache`` is."""
+        if self.cfg.family == "encdec":
+            logits, new = encdec.decode_step(params, cache, tokens, self.cfg)
+        else:
+            logits, new = transformer.decode_step(params, cache, tokens,
+                                                  self.cfg, embeds=embeds)
+        return logits, _shd.layout_like(new, cache)

@@ -28,6 +28,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.interpreter import (
     loop_body, loop_const, zero_cotangents,
 )
+from repro_torch.distributed.sharding import on_shards, replicate_like
 from repro_torch.models import common
 from repro_torch.models.common import ParamDef
 
@@ -57,8 +58,11 @@ def mamba_param_defs(cfg: ArchConfig) -> dict:
     }
 
 
+_CHUNK = 64      # the scans' chunk length
+
+
 def _chunks(S: int):
-    c = min(64, S)
+    c = min(_CHUNK, S)
     assert S % c == 0, (S, c)
     return c, S // c
 
@@ -82,7 +86,8 @@ def _mamba_core(p, xz, cfg: ArchConfig, conv_state, ssm_state, *,
         xc = common.einsum("bwd,wd->bd", hist,
                            p["conv_w"].to(x.dtype))[:, None]
     else:
-        pad = torch.zeros((B_, W - 1, di), dtype=x.dtype, device=x.device)
+        pad = replicate_like(x, torch.zeros((B_, W - 1, di), dtype=x.dtype,
+                                            device=x.device))
         hist = torch.cat([pad, x], dim=1)
         new_conv_state = hist[:, S:]                            # last W-1
         xc = sum(hist[:, i:i + S] * p["conv_w"][i].to(x.dtype)
@@ -105,34 +110,46 @@ def _mamba_core(p, xz, cfg: ArchConfig, conv_state, ssm_state, *,
         c_t = Cc.to(_F32)[:, 0]
         ssm_state = da[:, 0] * h + db_x[:, 0]                   # (B,di,N)
         y = common.einsum("bdn,bn->bd", ssm_state, c_t)[:, None].to(x.dtype)
+        y = y + xc * p["d_skip"].to(x.dtype)
     else:
-        # chunked over the sequence, token by token inside a chunk
-        c, _ = _chunks(S)
-        h = ssm_state.to(_F32)
-        ys = []
-        # each loop's inputs come from one split / unbind: the reference's
-        # scans stack their inputs' cotangents, where per-trip slices
-        # would sum them (``add_any`` sites it does not have)
-        for dt_c, xc_c, b_c, cc_c in zip(*(torch.split(t, c, dim=1)
-                                           for t in (dt, xc, Bc, Cc))):
-            with loop_body("chunk"):
-                da = torch.exp(dt_c.to(_F32)[..., None]
-                               * loop_const(A))                 # (B,c,di,N)
-                dbx = (dt_c.to(_F32) * xc_c.to(_F32))[..., None] \
-                    * b_c.to(_F32)[..., None, :]
-                for da_t, dbx_t, c_t in zip(da.unbind(1), dbx.unbind(1),
-                                            cc_c.to(_F32).unbind(1)):
-                    with loop_body("step"):
-                        h = da_t * h + dbx_t                    # (B,di,N)
-                        ys.append(common.einsum("bdn,bn->bd", h, c_t))
-        ssm_state = h
-        # the final carry's and ``A``'s cotangent sums start at zero, as
-        # the reference's scan transposes start them
-        y = zero_cotangents(torch.stack(ys, dim=1), h, A).to(x.dtype)
-
-    y = y + xc * p["d_skip"].to(x.dtype)
+        # the recurrence acts channel by channel: on a mesh each rank runs
+        # it on its channels (and its batch rows)
+        y, ssm_state = on_shards("mamba_scan", _selective_scan,
+                                 (dt, xc, Bc, Cc, A, ssm_state, p["d_skip"]),
+                                 "bsd,bsd,bsn,bsn,dn,bdn,d", "bsd,bdn",
+                                 repeats=("s", _CHUNK))
     y = y * common.silu(z)
     return y, new_conv_state, ssm_state
+
+
+def _selective_scan(dt, xc, Bc, Cc, A, h, d_skip):
+    """The selective scan over (B, S, di) inputs from ``h`` (B, di, N),
+    with its skip term: ``(y (B, S, di), final state)``. Chunked over the
+    sequence, token by token inside a chunk; each loop's inputs come from
+    one split / unbind: the reference's scans stack their inputs'
+    cotangents, where per-trip slices would sum them (``add_any`` sites it
+    does not have). The skip term reads ``xc`` here too, so on a mesh its
+    two cotangents are summed on each rank's pieces, where the scan's
+    delivers its term, as in the global run."""
+    c, _ = _chunks(dt.shape[1])
+    h = h.to(_F32)
+    ys = []
+    for dt_c, xc_c, b_c, cc_c in zip(*(torch.split(t, c, dim=1)
+                                       for t in (dt, xc, Bc, Cc))):
+        with loop_body("chunk"):
+            da = torch.exp(dt_c.to(_F32)[..., None]
+                           * loop_const(A))                     # (B,c,di,N)
+            dbx = (dt_c.to(_F32) * xc_c.to(_F32))[..., None] \
+                * b_c.to(_F32)[..., None, :]
+            for da_t, dbx_t, c_t in zip(da.unbind(1), dbx.unbind(1),
+                                        cc_c.to(_F32).unbind(1)):
+                with loop_body("step"):
+                    h = da_t * h + dbx_t                        # (B,di,N)
+                    ys.append(common.einsum("bdn,bn->bd", h, c_t))
+    # the final carry's and ``A``'s cotangent sums start at zero, as the
+    # reference's scan transposes start them
+    y = zero_cotangents(torch.stack(ys, dim=1), h, A).to(xc.dtype)
+    return y + xc * d_skip.to(xc.dtype), h
 
 
 def mamba_forward(p, x, cfg: ArchConfig):
@@ -141,7 +158,8 @@ def mamba_forward(p, x, cfg: ArchConfig):
     di = sc.expand * cfg.d_model
     B = x.shape[0]
     xz = x @ p["in_proj"].to(x.dtype)
-    ssm0 = torch.zeros((B, di, sc.state_dim), dtype=_F32, device=x.device)
+    ssm0 = replicate_like(xz, torch.zeros((B, di, sc.state_dim), dtype=_F32,
+                                          device=x.device))
     y, conv_state, ssm_state = _mamba_core(p, xz, cfg, None, ssm0,
                                            decode=False)
     out = y @ p["out_proj"].to(x.dtype)
@@ -221,13 +239,31 @@ def _rwkv6_mix(p, x, x_prev, cfg: ArchConfig, state):
     w = torch.exp(-torch.exp(w_log)).reshape(B, S, H, hd)       # decay in (0,1)
     u = p["bonus"].to(_F32)                                     # (H,hd)
 
-    # chunked over the sequence (the reference's chunk structure), token by
-    # token inside a chunk; each input is widened once, as the reference's
-    # chunking of (r, k, v, w) does
-    # token by token; the steps read ``unbind``'s slices, whose cotangents
-    # are stacked as the reference's scanned inputs' are (a ``select`` per
-    # step would sum them, one ``add_any`` per step)
-    c, nch = _chunks(S)
+    # the recurrence acts head by head: on a mesh each rank runs it on its
+    # heads (and its batch rows)
+    y, state = on_shards("rwkv6_scan", _wkv_scan, (r, k, v, w, u, state),
+                         "bshi,bshi,bshi,bshi,hi,bhij", "bshi,bhij",
+                         repeats=("s", _CHUNK))
+    y = y.reshape(B, S, d)
+
+    # per-head group norm (RWKV uses GroupNorm(H); rms per head here)
+    yh = y.reshape(B, S, H, hd).to(_F32)
+    yh = yh * torch.rsqrt((yh * yh).sum(dim=-1, keepdim=True) / hd + 1e-5)
+    y = (yh.reshape(B, S, d) * p["ln_scale"].to(_F32)).to(x.dtype)
+    y = y * g
+    out = y @ p["wo"].to(x.dtype)
+    return out, x[:, -1:], state
+
+
+def _wkv_scan(r, k, v, w, u, state):
+    """The WKV recurrence over (B, S, H, hd) inputs from ``state`` (B, H,
+    hd, hd): ``(y (B, S, H, hd) f32, final state)``. Chunked over the
+    sequence (the reference's chunk structure), token by token inside a
+    chunk; each input is widened once, as the reference's chunking of (r, k,
+    v, w) does, and the steps read ``unbind``'s slices, whose cotangents are
+    stacked as the reference's scanned inputs' are (a ``select`` per step
+    would sum them, one ``add_any`` per step)."""
+    c, nch = _chunks(r.shape[1])
     r, k, v, w = (t.to(_F32).unbind(1) for t in (r, k, v, w))
     # ``u`` is a const of both scans: its cotangent sums over a chunk's
     # steps and over the chunks start at zero, as does the final state's
@@ -245,16 +281,7 @@ def _rwkv6_mix(p, x, x_prev, cfg: ArchConfig, state):
                         s + loop_const(u_c)[..., None] * kv))
                     s = w_t[..., None] * s + kv
             s = zero_cotangents(s, u_c)
-    state = s
-    y = zero_cotangents(torch.stack(ys, dim=1), s, u).reshape(B, S, d)
-
-    # per-head group norm (RWKV uses GroupNorm(H); rms per head here)
-    yh = y.reshape(B, S, H, hd).to(_F32)
-    yh = yh * torch.rsqrt((yh * yh).sum(dim=-1, keepdim=True) / hd + 1e-5)
-    y = (yh.reshape(B, S, d) * p["ln_scale"].to(_F32)).to(x.dtype)
-    y = y * g
-    out = y @ p["wo"].to(x.dtype)
-    return out, x[:, -1:], state
+    return zero_cotangents(torch.stack(ys, dim=1), s, u), s
 
 
 def rwkv6_channel_defs(cfg: ArchConfig) -> dict:

@@ -62,7 +62,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.interpreter import loop_body, remat, scope
 from repro_torch.distributed.sharding import (
-    constrain, lookup, settled, whole_over_data,
+    constrain, lookup, replicate_like, settled, whole_over_data,
 )
 from repro_torch.models import attention, moe as moe_mod, ssm
 from repro_torch.models.common import (
@@ -201,11 +201,12 @@ def _seq_mix(cfg: ArchConfig, p, x, positions, is_global, mix_state,
                     mix_state["tm_state"])
                 return y, dict(mix_state, tm_shift=x_last, tm_state=s)
             B = x.shape[0]
-            x_prev = torch.zeros((B, 1, x.shape[-1]), dtype=x.dtype,
-                                 device=x.device)
+            x_prev = replicate_like(x, torch.zeros(
+                (B, 1, x.shape[-1]), dtype=x.dtype, device=x.device))
             hd = cfg.d_model // cfg.n_heads
-            s0 = torch.zeros((B, cfg.n_heads, hd, hd), dtype=torch.float32,
-                             device=x.device)
+            s0 = replicate_like(x, torch.zeros(
+                (B, cfg.n_heads, hd, hd), dtype=torch.float32,
+                device=x.device))
             y, _, _ = ssm._rwkv6_mix(p["time_mix"], x, x_prev, cfg, s0)
             return y, mix_state
 
@@ -230,8 +231,9 @@ def layer_forward(cfg: ArchConfig, p, x, positions, kind: str = "dense",
                     p["channel_mix"], h, new_state["cm_shift"], cfg)
                 new_state = dict(new_state, cm_shift=cm_last)
             else:
-                x_prev = torch.zeros((h.shape[0], 1, h.shape[-1]),
-                                     dtype=h.dtype, device=h.device)
+                x_prev = replicate_like(h, torch.zeros(
+                    (h.shape[0], 1, h.shape[-1]), dtype=h.dtype,
+                    device=h.device))
                 y2, _ = ssm.rwkv6_channel_mix(p["channel_mix"], h, x_prev,
                                               cfg)
     elif "moe" in p:
@@ -514,24 +516,46 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device=None):
     return cache
 
 
+# the logical axes of each decode-cache leaf, by its key (the reference's
+# ``launch.specs._CACHE_AXES_BY_KEY``): the keys and values over
+# ``kv_heads`` (over ``cache_seq`` where the heads do not divide), MLA's
+# latents over ``cache_seq``, Mamba's state over its channels (``mlp``),
+# RWKV-6's over its heads and its shifts over ``embed``
+CACHE_AXES_BY_KEY = {
+    "k": ("batch", "kv_heads", "cache_seq", None),
+    "v": ("batch", "kv_heads", "cache_seq", None),
+    "c_kv": ("batch", "cache_seq", None),
+    "k_rope": ("batch", "cache_seq", None),
+    "conv": ("batch", None, "mlp"),
+    "ssm": ("batch", "mlp", "state"),
+    "tm_state": ("batch", "heads", None, None),
+    "tm_shift": ("batch", None, "embed"),
+    "cm_shift": ("batch", None, "embed"),
+    "cross_k": ("batch", "kv_heads", "cache_seq", None),
+    "cross_v": ("batch", "kv_heads", "cache_seq", None),
+}
+
+
 def cache_axes(cache):
-    """The logical axes of every leaf of a GQA ``init_cache`` tree: the
-    cursors ``("batch",)``, each key / value cache ``(batch, kv_heads,
-    cache_seq, None)`` behind its stack axes. On a mesh the act rules lay
-    the cache out over ``kv_heads`` (the model axis), as the attention's
-    keys and values are (``gqa_forward``'s constraints)."""
+    """The logical axes of every leaf of an ``init_cache`` tree, of any
+    family: the cursors ``("batch",)``, every other leaf its key's
+    ``CACHE_AXES_BY_KEY`` entry behind its stack axes (a stacked layer
+    cache's leading ``(L,)``). On a mesh the act rules lay each cache out
+    as the program's activations are: the key / value caches over
+    ``kv_heads`` (the model axis) or, where the heads do not divide, over
+    ``cache_seq``; MLA's latents over ``cache_seq``; Mamba's over ``mlp``;
+    RWKV-6's state over ``heads``."""
     def axes(key, t):
         if isinstance(t, dict):
             return {k: axes(k, v) for k, v in t.items()}
         if isinstance(t, list):
             return [axes(key, v) for v in t]
-        if key in ("k", "v"):
-            return (None,) * (t.ndim - 4) + ("batch", "kv_heads",
-                                             "cache_seq", None)
         if key == "pos":
             return ("batch",)
-        raise NotImplementedError(f"cache leaf {key!r}: only the GQA "
-                                  "caches are laid out on a mesh")
+        if key not in CACHE_AXES_BY_KEY:
+            raise KeyError(f"cache leaf {key!r} has no logical axes")
+        ax = CACHE_AXES_BY_KEY[key]
+        return (None,) * (t.ndim - len(ax)) + ax
     return axes(None, cache)
 
 

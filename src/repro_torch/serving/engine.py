@@ -110,8 +110,9 @@ class Engine:
     The cache lives on the device of ``params``; it and the decode step
     have ``rows`` = :func:`decode_rows` lanes, of which the first
     ``batch_size`` serve requests. On sharded (DTensor) parameters the
-    cache is laid out on their mesh (``Model.place_cache``: over
-    ``kv_heads``) and a tick's read-back gathers the logits.
+    cache is laid out on their mesh (``Model.place_cache``) and a tick's
+    read-back gathers the logits; a shadowed tick runs on gathered inputs
+    (``_shadow_step``).
     """
 
     def __init__(self, model, params, batch_size: int = 8,
@@ -140,11 +141,10 @@ class Engine:
                         if self.policy is not None
                         else _signatures_counted(raw_step))
         self._shadow: Optional[ShadowProfiler] = None
-        if shadow is not None and _shd._is_dtensor(leaf):
-            raise NotImplementedError(
-                "shadow profiling of a sharded engine: memtrace runs the "
-                "global program on gathered parameters; serve it on one "
-                "rank")
+        # a sharded engine's parameters, gathered at its first shadowed
+        # tick: they do not change while it serves
+        self._mesh = leaf.device_mesh if _shd._is_dtensor(leaf) else None
+        self._whole_params = None
         if shadow is not None:
             self._shadow = ShadowProfiler(raw_step, self.policy, shadow,
                                           artifact=self.artifact)
@@ -275,8 +275,7 @@ class Engine:
 
         shadow_live = [s for s in live if self.slots[s].shadowed]
         if self._shadow is not None and shadow_live:
-            logits, self.cache, report = self._shadow.step(
-                self.params, self.cache, tokens)
+            logits, self.cache, report = self._shadow_step(tokens)
             self._shadow.observe(report,
                                  [self.slots[s] for s in shadow_live],
                                  self._tick)
@@ -326,6 +325,22 @@ class Engine:
         while self._queue or any(s is not None for s in self.slots):
             self.step()
         return self._done
+
+    def _shadow_step(self, tokens):
+        """The shadowed tick: ``memtrace`` of the decode step, whose
+        truncated lane serves. On a mesh it runs as the profilers run
+        there, the global program on gathered inputs (the parameters
+        gathered once, the cache each shadowed tick), and its new cache is
+        laid out on the mesh again."""
+        params, cache = self.params, self.cache
+        if self._mesh is not None:
+            if self._whole_params is None:
+                self._whole_params = _shd.gather_tree(self.params)
+            params, cache = self._whole_params, _shd.gather_tree(cache)
+        logits, cache, report = self._shadow.step(params, cache, tokens)
+        if self._mesh is not None:
+            cache = self.model.place_cache(cache, self._mesh)
+        return logits, cache, report
 
     def stream(self) -> Iterator[Request]:
         """Yield requests as they finish (completion order), instead of
